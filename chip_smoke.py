@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and hold its
+hand-written kernels against their plain PyTorch versions.
+
+The main path is EfficientDet-D0 predict at its full width (512 x 512
+input, 90 classes, bf16 compute, gaussian soft-NMS, energy OOD, 5000
+candidates, 100 detections), random weights from a seed:
+uint8 canvases -> letterbox + normalise -> forward -> K2 (packed key +
+energy reduce) -> top-k -> decode -> K1 (NMS) -> survivor energy.
+
+Phases, each synchronised so that a fault shows where it happened:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the kernels from csrc/ with nvcc, every source at once;
+  3. each kernel vs its plain version on the card, at the main path's
+     shapes, batch 16 and 128, with tied and all-zero inputs;
+  4. the main path answers 3 requests of 16 canvases; the kernels'
+     launch counters must have moved, the outputs must be finite, of the
+     right shapes, with detections, and the plain path on the same batch
+     must keep the same candidates;
+  5. times: each kernel (CUDA events) beside its bound, its plain
+     version and a library call; end to end at batch 16 and 128, images/s
+     and the spread of request times over a window of a few seconds; and
+     where a request's time goes (torch.profiler): device busy time and
+     the card's idle share of the whole request and of each stage
+     (preproc, forward, post-process), and the top device kernels.
+
+Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failure exits non-zero with no result.
+
+Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
+                                     $CUDA_HOME/bin, default /usr/local/cuda)
+"""
+import collections
+import json
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ood_object_detection_tpu_torch.data.device_preproc import (
+    batched_letterbox_normalize)
+from ood_object_detection_tpu_torch.factory import create_model
+from ood_object_detection_tpu_torch.ops import cuda_build, cuda_nms, cuda_reduce
+from ood_object_detection_tpu_torch.ops import post_process as pp
+from ood_object_detection_tpu_torch.ops.nms import batched_nms_plain
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, and the f32
+# rate outside the tensor cores. The data sheet's 67 TFLOP/s counts a
+# fused multiply-add as two operations; the kernels run compares, min/max,
+# adds and multiplies, one operation an instruction, so half of it.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+NUM_CLASSES = 90
+BATCH = 16
+IMG = 512
+WINDOW_S = 2.5       # end-to-end timing window at each batch
+PROFILE_REPS = 10    # calls in each profiler window
+REPO_KERNELS = {
+    "K1": ("ood_object_detection_tpu_torch/csrc/nms.cu",
+           "ood_object_detection_tpu/ops/pallas_nms.py:77"),
+    "K2": ("ood_object_detection_tpu_torch/csrc/key_reduce.cu",
+           "ood_object_detection_tpu/ops/pallas_reduce.py:79"),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """Mean device time of fn() over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
+def level_shapes(batch, img=IMG):
+    """D0 class-head output shapes [B, H, W, 9*C] of levels P3..P7."""
+    return [(batch, img >> lvl, img >> lvl, 9 * NUM_CLASSES)
+            for lvl in range(3, 8)]
+
+
+def tied_logits(batch, gen):
+    """bf16 logits on a coarse grid (many tied values and packed keys);
+    one anchor per level with all classes equal."""
+    levels = []
+    for shape in level_shapes(batch):
+        x = torch.randn(shape, generator=gen, device="cuda") * 1.5 - 3.0
+        x = (torch.round(x * 4) / 4 + 0.0).to(torch.bfloat16)
+        x[0, 0, 0, :NUM_CLASSES] = 0.5
+        levels.append(x)
+    return levels
+
+
+def random_nms_inputs(batch, n, gen):
+    x1 = torch.rand((batch, n), generator=gen, device="cuda") * 300
+    y1 = torch.rand((batch, n), generator=gen, device="cuda") * 300
+    w = torch.rand((batch, n), generator=gen, device="cuda") * 55 + 5
+    h = torch.rand((batch, n), generator=gen, device="cuda") * 55 + 5
+    boxes = torch.stack([x1, y1, x1 + w, y1 + h], dim=-1).contiguous()
+    scores = torch.rand((batch, n), generator=gen, device="cuda")
+    scores = torch.round(scores * 8) / 8               # exact ties
+    scores[1] = 0.0                                    # an all-zero row
+    return boxes, scores
+
+
+def k2_compare(levels):
+    key, energy = cuda_reduce.key_energy_reduce(levels, NUM_CLASSES, True)
+    key_p, energy_p = cuda_reduce.key_energy_reduce_plain(
+        levels, NUM_CLASSES, True)
+    sync()
+    check(torch.equal(key, key_p), "K2 key differs from the plain version")
+    check(torch.allclose(energy, energy_p, rtol=1e-5, atol=1e-5),
+          "K2 energy differs from the plain version beyond rtol 1e-5")
+    return float((energy - energy_p).abs().max())
+
+
+def k1_compare(boxes, scores, soft):
+    kw = dict(max_out=100, iou_threshold=0.3, soft=soft)
+    keep, kept = cuda_nms.batched_nms(boxes, scores, **kw)
+    keep_p, kept_p = batched_nms_plain(boxes, scores, **kw)
+    sync()
+    check(torch.equal(keep, keep_p),
+          f"K1 keep indices differ (soft={soft}) from the plain version")
+    rtol = 1e-4 if soft else 1e-6
+    check(torch.allclose(kept, kept_p, rtol=rtol, atol=0),
+          f"K1 kept scores differ beyond rtol {rtol}")
+    return float((kept - kept_p).abs().max())
+
+
+def canvases(batch, gen):
+    """uint8 canvases of 512 x 512, each image's valid (h, w) in [256, 512)
+    (the JAX package's predict_bench inputs, bench.py:100-104)."""
+    imgs = torch.randint(0, 256, (batch, IMG, IMG, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    hw = torch.randint(IMG // 2, IMG, (batch, 2), generator=gen,
+                       device="cuda").cpu()
+    return imgs, hw
+
+
+def nms_bound_ms(keep, n, soft):
+    """Least time for the NMS on these inputs: its bytes (boxes + scores in,
+    picks out) over the memory rate, or its operations over the f32 rate:
+    each iteration that runs (the picks made, and the one that finds no
+    positive score) scans and updates all n candidates, 15 operations a
+    candidate for hard NMS (argmax step, IoU, compare), 20 for soft.
+    Neither counts the chain of dependent picks, which is what sets the
+    kernel's time (see kernel_times' per-pick latency)."""
+    b, max_out = keep.shape
+    live = (keep >= 0).sum(dim=1)
+    iterations = int(torch.clamp(live + 1, max=max_out).sum())
+    ops = iterations * n * (20 if soft else 15)
+    nbytes = b * n * (16 + 4) + b * max_out * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def reduce_bound_ms(levels):
+    """Least time for K2: every logit read once, keys and energies written
+    once, against about 9 operations a logit (key: 5, energy: 4)."""
+    elements = sum(lvl.numel() for lvl in levels)
+    anchors = elements // NUM_CLASSES
+    nbytes = elements * 2 + anchors * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, elements * 9 / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    # f32 convolutions would run TF32 by default; nothing here compares
+    # f32 model outputs, but keep every f32 op at full precision
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"[1] card: {smi}; torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+
+    # 2. build
+    t0 = time.time()
+    build_logs = cuda_build.build_all()
+    for source, out in build_logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {source}: {line.strip()}")
+    log(f"[2] built {sorted(cuda_build.SOURCES)} in {time.time() - t0:.1f} s")
+
+    # 3. kernels vs plain versions on the card
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for batch in (BATCH, 128):
+        err = k2_compare(tied_logits(batch, gen))
+        log(f"[3] K2 B={batch}: key bit-exact, energy max abs err {err:.3g}")
+        boxes, scores = random_nms_inputs(batch, 5000, gen)
+        for soft in (False, True):
+            err = k1_compare(boxes, scores, soft)
+            log(f"[3] K1 [{batch}, 5000] soft={soft}: keep equal, "
+                f"score max abs err {err:.3g}")
+    sync()
+
+    # 4. main path: 3 requests of 16 canvases
+    bench = create_model("efficientdet_d0", bench_task="predict",
+                         num_classes=NUM_CLASSES, soft_nms=True,
+                         ood_method="energy", compute_dtype="bfloat16",
+                         seed=0, device="cuda")
+    # a few classes above the 0.01 score floor
+    bench.model.class_net.predict_bias().view(9, NUM_CLASSES)[:, :3] += 2.0
+    requests = [canvases(BATCH, gen) for _ in range(3)]
+    sync()
+    cuda_nms.batched_nms.launches = 0
+    cuda_reduce.key_energy_reduce.launches = 0
+    for imgs, hw in requests:
+        pre = batched_letterbox_normalize(imgs, hw, target_hw=(IMG, IMG),
+                                          out_dtype="bfloat16")
+        dets, ood = bench(pre["image"], pre)
+    sync()
+    launches = {"K1": cuda_nms.batched_nms.launches,
+                "K2": cuda_reduce.key_energy_reduce.launches}
+    log(f"[4] main path: 3 requests x {BATCH} images, launches {launches}")
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"a kernel of the main path never launched: {launches}")
+    check(tuple(dets.shape) == (BATCH, 100, 6)
+          and tuple(ood.shape) == (BATCH, 100), "output shapes")
+    check(bool(torch.isfinite(dets).all()) and bool(torch.isfinite(ood).all()),
+          "non-finite outputs")
+    n_det = int((dets[..., 4] > 0).sum())
+    check(n_det > 0, "no detections")
+    log(f"[4] {n_det} detections in the last request; first: "
+        f"{[round(v, 3) for v in dets[0, 0].tolist()]}, "
+        f"energy {float(ood[0, 0]):.4f}")
+
+    # the same batch through the plain path on the card
+    cls, box = bench.model(pre["image"])
+    err_k2 = k2_compare(cls)
+    cand_k, cand_p = (pp.select_candidates(
+        cls, box, bench.anchors, NUM_CLASSES, 5000, "energy", kernels=k)
+        for k in (True, False))
+    # the selection is bit-exact; the energies agree to f32 summation order
+    check(all(torch.equal(a, b) for a, b in zip(cand_k[:-1], cand_p[:-1])),
+          "candidates differ between K2 and its plain version")
+    check(torch.allclose(cand_k.ood_all, cand_p.ood_all, rtol=1e-5,
+                         atol=1e-5), "energies differ beyond rtol 1e-5")
+    info = (pre["img_scale"], pre["img_size"])
+    dets_k, keep_k = pp.batch_detection(*cand_k[:4], *info, soft_nms=True,
+                                        kernels=True)
+    dets_p, keep_p = pp.batch_detection(*cand_p[:4], *info, soft_nms=True,
+                                        kernels=False)
+    sync()
+    check(torch.equal(keep_k, keep_p), "keep indices differ on the main path")
+    err_k1 = float((dets_k[..., 4] - dets_p[..., 4]).abs().max())
+    check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
+          "detections differ between the kernel and plain paths")
+    log(f"[4] plain path on the same batch: equal keep indices "
+        f"({int((keep_k >= 0).sum())} kept), score max abs err {err_k1:.3g}")
+
+    # 5. times: the kernels at the main path's shapes (batch 16) and at
+    #    batch 128, end to end at both; card as printed above
+    t = kernel_times(cand_k, cls, info)
+    for batch in (BATCH, 128):
+        throughput(bench, batch, gen)
+    sync()
+
+    kernels = [
+        dict(name="K1 batched soft/hard NMS", route="cuda",
+             source=REPO_KERNELS["K1"][0], replaces=REPO_KERNELS["K1"][1],
+             launches=launches["K1"], max_abs_err=err_k1, **t["K1"]),
+        dict(name="K2 packed key + energy reduce", route="cuda",
+             source=REPO_KERNELS["K2"][0], replaces=REPO_KERNELS["K2"][1],
+             launches=launches["K2"], max_abs_err=err_k2, **t["K2"]),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_times(cand, cls, info):
+    """Each kernel's time (CUDA events, after warm-up) beside its bound, its
+    plain version and a library call, on the inputs the main path gives
+    it: the candidates ``cand`` of the post-process with the images'
+    (img_scale, img_size) ``info``, and the bf16 class outputs ``cls``.
+    Logs them and returns the JSON fields."""
+    batch = cls[0].shape[0]
+    _, scores, offset_boxes = pp.nms_inputs(*cand[:4], *info)
+    nms_kw = dict(max_out=100, iou_threshold=0.3, soft=True)
+    keep, _ = cuda_nms.batched_nms(offset_boxes, scores, **nms_kw)
+    k1_bound, k1_by = nms_bound_ms(keep, scores.shape[1], soft=True)
+    k1 = dict(
+        ms=cuda_ms(lambda: cuda_nms.batched_nms(offset_boxes, scores,
+                                                **nms_kw), 50),
+        plain_ms=cuda_ms(lambda: batched_nms_plain(offset_boxes, scores,
+                                                   **nms_kw), 5),
+        bound_ms=k1_bound, bound_by=k1_by, library_ms=None)
+    k2_bound, k2_by = reduce_bound_ms(cls)
+    k2 = dict(
+        ms=cuda_ms(lambda: cuda_reduce.key_energy_reduce(
+            cls, NUM_CLASSES, True), 50),
+        plain_ms=cuda_ms(lambda: cuda_reduce.key_energy_reduce_plain(
+            cls, NUM_CLASSES, True), 5),
+        bound_ms=k2_bound, bound_by=k2_by,
+        library_ms=cuda_ms(lambda: [torch.logsumexp(
+            lvl.reshape(batch, -1, NUM_CLASSES), dim=-1) for lvl in cls], 20))
+    # the blocks run side by side: the image with the most picks sets the time
+    picks = int(torch.clamp((keep >= 0).sum(dim=1) + 1, max=100).max())
+    log(f"[5] K1 soft [{batch}, {scores.shape[1]}]: {k1['ms']:.4f} ms, plain "
+        f"{k1['plain_ms']:.3f} ms, bound {k1_bound:.5f} ms ({k1_by}); "
+        f"{k1['ms'] * 1e3 / picks:.3f} us a pick over {picks} picks")
+    log(f"[5] K2 B={batch}: {k2['ms']:.4f} ms, plain {k2['plain_ms']:.3f} "
+        f"ms, logsumexp {k2['library_ms']:.4f} ms, bound {k2_bound:.4f} ms "
+        f"({k2_by})")
+    return {"K1": k1, "K2": k2}
+
+
+def busy_ms(events):
+    """Length of the union of the device events' intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
+def profile_window(fn, reps=PROFILE_REPS):
+    """Where one call of fn spends its time: the host clock over ``reps``
+    calls with the profiler off (wall), then the union of the card's
+    kernel, copy and set intervals over ``reps`` calls in a torch.profiler
+    window (busy), the card's idle share of the wall time, and the device
+    operations of a call. Returns (those numbers, the device events)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(device) > 0, "the profiler recorded no device activity")
+    busy = busy_ms(device) / reps
+    return dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
+                ops=len(device) / reps), device
+
+
+def throughput(bench, batch, gen):
+    """End to end at ``batch`` over uint8 canvases already on the card.
+    Requests (preproc -> forward -> post-process, each ending in a
+    synchronise) run until WINDOW_S seconds have passed: images/s over the
+    window, and the median, least and most request time. Then a profiler
+    window of the whole request and of each stage alone (profile_window),
+    and the kernels with the most device time in a request. At batches
+    other than the main path's, also the kernels' times on this batch."""
+    imgs, hw = canvases(batch, gen)
+
+    def preproc():
+        return batched_letterbox_normalize(imgs, hw, target_hw=(IMG, IMG),
+                                           out_dtype="bfloat16")
+
+    def request():
+        pre = preproc()
+        return bench(pre["image"], pre)
+
+    request()
+    sync()
+    times = []
+    start = time.perf_counter()
+    while time.perf_counter() - start < WINDOW_S:
+        t0 = time.perf_counter()
+        request()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    log(f"[5] end to end B={batch}: {batch * len(times) * 1e3 / sum(times)}"
+        f" images/s over {len(times)} requests; request ms median "
+        f"{times[len(times) // 2]}, min {times[0]}, max {times[-1]}")
+
+    pre = preproc()
+    cls, box = bench.model(pre["image"])
+    stages = {
+        "request": request,
+        "preproc": preproc,
+        "forward": lambda: bench.model(pre["image"]),
+        "post": lambda: pp.generate_detections(
+            cls, box, bench.anchors, NUM_CLASSES, img_scale=pre["img_scale"],
+            img_size=pre["img_size"], soft_nms=True, ood_method="energy"),
+    }
+    top = collections.Counter()
+    for name, fn in stages.items():
+        numbers, device = profile_window(fn)
+        log(f"[5] profile B={batch} {name}: " + ", ".join(
+            f"{k} {v}" for k, v in numbers.items()))
+        if name == "request":
+            for e in device:
+                top[e.name[:80]] += (e.time_range.end - e.time_range.start
+                                     ) / 1e3 / PROFILE_REPS
+    for name, ms in top.most_common(10):
+        log(f"[5] top kernel B={batch}: {ms:.4f} ms {name}")
+    if batch != BATCH:
+        kernel_times(pp.select_candidates(cls, box, bench.anchors,
+                                          NUM_CLASSES, 5000, "energy"), cls,
+                     (pre["img_scale"], pre["img_size"]))
+
+
+if __name__ == "__main__":
+    with torch.no_grad():
+        sys.exit(main())

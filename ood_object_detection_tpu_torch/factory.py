@@ -1,0 +1,69 @@
+"""Model factory: zoo name -> EfficientDet, or its predict bench, on a
+device.
+
+Port of ``ood_object_detection_tpu.factory`` for ``bench_task`` '' and
+'predict'. The weights are drawn from a ``torch.Generator`` seeded with
+``seed`` (the JAX package's initialisers, focal prior bias on the class
+predict conv); trained weights come in through
+``utils.from_jax.load_jax_variables``. No checkpoint file is read.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from .bench import DetBenchPredict
+from .config.model_config import ModelConfig, get_efficientdet_config
+from .models.efficientdet import EfficientDet
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device to build on: ``None`` means the CUDA card, and raises
+    when there is none; the port never drops to the CPU unless the caller
+    names it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def create_model(model_name: str = "tf_efficientdet_d1",
+                 bench_task: str = "",
+                 num_classes: Optional[int] = None,
+                 seed: int = 0,
+                 ood_method: Optional[str] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 **config_overrides):
+    """Build a model by zoo name (optionally wrapped in a predict bench)
+    on ``device``: the CUDA card when None (raises without one), or the
+    device named. ``config_overrides`` go into the model config."""
+    config = get_efficientdet_config(model_name)
+    if num_classes is not None:
+        config = config.replace(num_classes=num_classes)
+    if config_overrides:
+        config = config.replace(**config_overrides)
+    return create_model_from_config(config, bench_task=bench_task, seed=seed,
+                                    ood_method=ood_method, device=device)
+
+
+def create_model_from_config(config: ModelConfig, bench_task: str = "",
+                             seed: int = 0,
+                             ood_method: Optional[str] = None,
+                             device: Optional[Union[str, torch.device]] = None):
+    """EfficientDet (``bench_task=''``) or DetBenchPredict (``'predict'``)
+    with seeded weights, in eval mode, channels_last, on ``device``."""
+    if bench_task not in ("", "predict"):
+        raise NotImplementedError(
+            f"bench_task {bench_task!r} is not ported yet ('' or 'predict')")
+    device = resolve_device(device)
+    model = EfficientDet(config)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model = model.to(device=device, memory_format=torch.channels_last).eval()
+    if bench_task == "predict":
+        return DetBenchPredict(model, ood_method=ood_method).eval()
+    return model

@@ -1,0 +1,85 @@
+"""The assembled EfficientDet (backbone + BiFPN + class / box heads).
+
+Port of ``ood_object_detection_tpu.models.efficientdet``. The public
+methods keep the JAX package's layouts: images ``[B, H, W, 3]`` in, and
+per-level NHWC features / head outputs (class ``[B, H, W, A*C]``, box
+``[B, H, W, A*4]``) out. Inside, every module runs NCHW tensors in
+``torch.channels_last`` memory, so moving between the two layouts is a
+free ``permute`` view; the K2 kernel reads the NHWC view of the class
+head's outputs in place.
+
+The input is cast to ``config.compute_dtype`` once, as in the JAX model
+(``efficientdet.py:93``); the parameters stay f32 and are cast per op.
+Inference only: the train step is a later slice.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from ..config.model_config import ModelConfig
+from .backbone import create_backbone
+from .bifpn import BiFpn
+from .heads import PRIOR_BIAS, HeadNet
+from .layers import Conv2d, init_conv_
+
+
+def _nchw(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [x.permute(0, 3, 1, 2) for x in xs]
+
+
+def _nhwc(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [x.permute(0, 2, 3, 1) for x in xs]
+
+
+class EfficientDet(nn.Module):
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        if config.separate_head:
+            raise NotImplementedError("separate_head is not ported yet")
+        self.config = config
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        self.backbone, feature_info = create_backbone(
+            config.backbone_name, **(config.backbone_args or {}))
+        self.feature_info = tuple(feature_info)
+        self.fpn = BiFpn(config, self.feature_info)
+        self.class_net = HeadNet(config, config.num_classes)
+        self.box_net = HeadNet(config, 4)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw every conv from the JAX package's initialiser for it, in
+        module order, from ``generator``; the class head's predict bias
+        starts at the focal prior. BatchNorm and the BiFPN edge weights
+        keep their constructed values (1, 0, mean 0, var 1; ones)."""
+        for module in self.modules():
+            if isinstance(module, Conv2d):
+                init_conv_(module, generator)
+        self.class_net.predict_bias().fill_(PRIOR_BIAS)
+
+    def _image(self, x: torch.Tensor) -> torch.Tensor:
+        return x.permute(0, 3, 1, 2).to(self.compute_dtype)
+
+    def backbone_features(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Image [B, H, W, 3] -> [P3, P4, P5] backbone features (NHWC)."""
+        return _nhwc(self.backbone(self._image(x)))
+
+    def fpn_features(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Backbone features -> FPN pyramid P3..P7 (NHWC)."""
+        return _nhwc(self.fpn(_nchw(feats)))
+
+    def heads(self, activs: List[torch.Tensor]
+              ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Pyramid (NHWC) -> (class outputs, box outputs) per level."""
+        activs = _nchw(activs)
+        return _nhwc(self.class_net(activs)), _nhwc(self.box_net(activs))
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Image [B, H, W, 3] -> (class [B, H, W, A*C], box [B, H, W, A*4])
+        per level."""
+        activs = self.fpn(self.backbone(self._image(x)))
+        return _nhwc(self.class_net(activs)), _nhwc(self.box_net(activs))

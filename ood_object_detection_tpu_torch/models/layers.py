@@ -1,0 +1,273 @@
+"""Building-block layers: activations, padding, conv blocks, resampling.
+
+Port of ``ood_object_detection_tpu.models.layers``. Tensors are NCHW in
+``torch.channels_last`` memory, so a permute to NHWC is a free view.
+
+Dtype placement follows the JAX package, not ``torch.autocast``: the
+parameters stay f32 and each conv casts its weight and bias to the
+input's dtype per call (flax ``promote_dtype``); BatchNorm computes in
+f32 from a low-precision input and returns the input's dtype (flax
+``_normalize``). The model casts its input to the compute dtype once.
+
+Padding: ``pad_type='same'`` is TF SAME (asymmetric for stride > 1);
+``pad_type=''`` is symmetric ``(k-1)//2 * dilation``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_ACTS: Dict[str, Callable] = {
+    "swish": F.silu,
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
+    "hard_swish": F.hardswish,
+    "hard_sigmoid": F.hardsigmoid,
+    "sigmoid": torch.sigmoid,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "identity": lambda x: x,
+}
+
+
+def get_act(name: Optional[str]) -> Callable:
+    return _ACTS["swish" if name is None else name]
+
+
+def _same_pads(size: int, kernel: int, stride: int, dilation: int = 1):
+    """TF SAME (low, high) padding of one spatial dim."""
+    eff = (kernel - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, dilation: int = 1,
+             value: float = 0.0) -> torch.Tensor:
+    top, bottom = _same_pads(x.shape[2], kernel, stride, dilation)
+    left, right = _same_pads(x.shape[3], kernel, stride, dilation)
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+def _is_same(pad_type: str) -> bool:
+    return pad_type in ("same", "SAME")
+
+
+# ---------------------------------------------------------------------------
+# initialisers (the JAX package's schemes, drawn from an explicit generator)
+# ---------------------------------------------------------------------------
+
+def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """Draw a conv's weight by its ``init_kind``; zero its bias.
+
+    'glorot_uniform': variance scaling 1.0, fan_avg, uniform (flax
+    ConvBnAct / SeparableConv default). 'lecun_normal': variance scaling
+    1.0, fan_in, truncated normal (flax nn.Conv default). 'fan_in_normal':
+    variance scaling 1.0, fan_in, normal (the head convs). Fans count as
+    flax does for a [kh, kw, in/g, out] kernel.
+    """
+    out_ch, in_g, kh, kw = conv.weight.shape
+    fan_in, fan_out = in_g * kh * kw, out_ch * kh * kw
+    with torch.no_grad():
+        if conv.init_kind == "glorot_uniform":
+            limit = math.sqrt(3.0 / ((fan_in + fan_out) / 2.0))
+            nn.init.uniform_(conv.weight, -limit, limit, generator=generator)
+        elif conv.init_kind == "lecun_normal":
+            # flax truncates at 2 std and rescales to keep the variance
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(conv.weight, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
+        elif conv.init_kind == "fan_in_normal":
+            nn.init.normal_(conv.weight, 0.0, math.sqrt(1.0 / fan_in),
+                            generator=generator)
+        else:
+            raise ValueError(f"unknown init_kind {conv.init_kind!r}")
+        if conv.bias is not None:
+            conv.bias.zero_()
+
+
+# ---------------------------------------------------------------------------
+# conv / norm
+# ---------------------------------------------------------------------------
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with the JAX package's padding rules; the f32 weight and
+    bias are cast to the input's dtype per call."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 bias: bool = False, pad_type: str = "",
+                 init_kind: str = "lecun_normal"):
+        self.same = _is_same(pad_type)
+        padding = 0 if self.same else ((kernel_size - 1) // 2) * dilation
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding, dilation=dilation,
+                         groups=groups, bias=bias)
+        self.init_kind = init_kind
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.same:
+            x = pad_same(x, self.kernel_size[0], self.stride[0],
+                         self.dilation[0])
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Inference BatchNorm with eps 1e-3: f32 statistics and affine applied
+    to a low-precision input, output in the input's dtype (flax BatchNorm
+    with ``dtype=compute_dtype``). Training-mode statistics belong to the
+    train step, which is not ported yet (EfficientDet refuses train mode).
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+class ConvBnAct(nn.Module):
+    """Conv -> (BN) -> (act)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 pad_type: str = "", bias: bool = False, norm: bool = True,
+                 act_type: Optional[str] = "swish", norm_eps: float = 1e-3,
+                 norm_momentum: float = 0.01,
+                 init_kind: str = "glorot_uniform"):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
+                           dilation, bias=bias, pad_type=pad_type,
+                           init_kind=init_kind)
+        self.bn = (BatchNorm2d(out_channels, norm_eps, norm_momentum)
+                   if norm else None)
+        self.act = None if act_type is None else get_act(act_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x
+
+
+class SeparableConv(nn.Module):
+    """Depthwise conv -> pointwise conv -> (BN) -> (act)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 pad_type: str = "", bias: bool = False,
+                 channel_multiplier: int = 1, norm: bool = True,
+                 act_type: Optional[str] = "swish", norm_eps: float = 1e-3,
+                 norm_momentum: float = 0.01,
+                 init_kind: str = "glorot_uniform"):
+        super().__init__()
+        mid = in_channels * channel_multiplier
+        self.conv_dw = Conv2d(in_channels, mid, kernel_size, stride,
+                              dilation, groups=in_channels, bias=False,
+                              pad_type=pad_type, init_kind=init_kind)
+        self.conv_pw = Conv2d(mid, out_channels, 1, bias=bias,
+                              init_kind=init_kind)
+        self.bn = (BatchNorm2d(out_channels, norm_eps, norm_momentum)
+                   if norm else None)
+        self.act = None if act_type is None else get_act(act_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_pw(self.conv_dw(x))
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# resize / resample
+# ---------------------------------------------------------------------------
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Integer nearest upsample: every pixel repeated ``scale`` times per
+    axis (bit-exact with the JAX package's ``jnp.repeat``)."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def max_pool2d(x: torch.Tensor, kernel_size: int, stride: int,
+               pad_type: str) -> torch.Tensor:
+    if _is_same(pad_type):
+        # TF SAME pooling: asymmetric -inf padding
+        return F.max_pool2d(pad_same(x, kernel_size, stride,
+                                     value=float("-inf")),
+                            kernel_size, stride)
+    return F.max_pool2d(x, kernel_size, stride, padding=(kernel_size - 1) // 2)
+
+
+class ResampleFeatureMap(nn.Module):
+    """Channel projection (1x1 conv, optional BN) + spatial resample.
+
+    Downsampling max-pools with kernel = stride + 1; upsampling is nearest
+    by integer repeat. ``avg`` pooling and interpolating downsample /
+    bilinear upsample serve other zoo entries and wait for a later slice.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 reduction_ratio: float = 1.0, pad_type: str = "",
+                 downsample: str = "max", upsample: str = "nearest",
+                 apply_bn: bool = False, conv_after_downsample: bool = False,
+                 redundant_bias: bool = False, norm_eps: float = 1e-3,
+                 norm_momentum: float = 0.01):
+        super().__init__()
+        if reduction_ratio > 1 and downsample != "max":
+            raise NotImplementedError(f"downsample_type {downsample!r}")
+        if reduction_ratio < 1 and upsample != "nearest":
+            raise NotImplementedError(f"upsample_type {upsample!r}")
+        self.reduction_ratio = reduction_ratio
+        self.pad_type = pad_type
+        self.conv_after_downsample = conv_after_downsample
+        self.conv = None
+        if in_channels != out_channels:
+            self.conv = ConvBnAct(
+                in_channels, out_channels, kernel_size=1, pad_type=pad_type,
+                norm=apply_bn, bias=not apply_bn or redundant_bias,
+                act_type=None, norm_eps=norm_eps, norm_momentum=norm_momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.reduction_ratio > 1:
+            if self.conv is not None and not self.conv_after_downsample:
+                x = self.conv(x)
+            stride = int(self.reduction_ratio)
+            x = max_pool2d(x, stride + 1, stride, self.pad_type)
+            if self.conv is not None and self.conv_after_downsample:
+                x = self.conv(x)
+        else:
+            if self.conv is not None:
+                x = self.conv(x)
+            if self.reduction_ratio < 1:
+                x = upsample_nearest(x, int(1 // self.reduction_ratio))
+        return x
+
+
+class SqueezeExcite(nn.Module):
+    """SE block: global mean -> reduce conv -> act -> expand conv -> gate."""
+
+    def __init__(self, channels: int, reduced_channels: int,
+                 act_type: str = "swish", gate_type: str = "sigmoid"):
+        super().__init__()
+        self.conv_reduce = Conv2d(channels, reduced_channels, 1, bias=True)
+        self.conv_expand = Conv2d(reduced_channels, channels, 1, bias=True)
+        self.act = get_act(act_type)
+        self.gate = get_act(gate_type)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self.conv_expand(self.act(self.conv_reduce(s)))
+        return x * self.gate(s)

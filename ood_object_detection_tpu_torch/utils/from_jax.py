@@ -1,0 +1,122 @@
+"""Load the JAX package's variables into the port's model.
+
+``load_jax_variables(model, variables)`` takes the JAX model's
+``{"params": ..., "batch_stats": ...}`` tree (numpy or array-likes) and
+loads it into a port module whose submodules carry the reference effdet
+names (``backbone.blocks.S.B.conv_dw``, ``fpn.cell.R.fnode.I.combine.
+resample.O.conv.conv``, ``class_net.bn_rep.R.L.bn`` ...). It is the inverse
+of the JAX package's torch-name converter
+(``utils/checkpoint_convert.py:_translate_name`` + ``_convert_tensor``):
+
+  torch path                               flax path
+  backbone.conv_stem / bn1                 backbone/conv_stem, bn_stem
+  backbone.blocks.S.B.<leaf>               backbone/blocks_S_B/<leaf>
+  fpn.resample.L.<leaf>                    fpn/resample_L/<leaf>
+  fpn.cell.R.fnode.I.combine.resample.O.*  fpn/cell_R/fnode_I/combine/resample_O/*
+  fpn.cell.R.fnode.I.after_combine.conv.*  fpn/cell_R/fnode_I/after_combine_conv/*
+  {class,box}_net.conv_rep.R.*             {class,box}_net/conv_rep_R/*
+  {class,box}_net.bn_rep.R.L.bn.*          {class,box}_net/bn_rep_R_L/*
+  {class,box}_net.predict.*                {class,box}_net/predict/*
+
+Layouts: conv ``[kh, kw, in/g, out]`` -> ``[out, in/g, kh, kw]``; dense
+``[in, out]`` -> ``[out, in]``; norm ``scale/bias`` -> ``weight/bias`` and
+``batch_stats`` ``mean/var`` -> ``running_mean/running_var``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.heads import HeadBatchNorm
+
+_PATH_RULES = (
+    (r"^backbone\.conv_stem$", "backbone.conv_stem"),
+    (r"^backbone\.bn1$", "backbone.bn_stem"),
+    (r"^backbone\.blocks\.(\d+)\.(\d+)\.", r"backbone.blocks_\1_\2."),
+    (r"^fpn\.resample\.(\d+)\.", r"fpn.resample_\1."),
+    (r"^fpn\.cell\.(\d+)\.fnode\.(\d+)\.", r"fpn.cell_\1.fnode_\2."),
+    (r"\.combine\.resample\.(\d+)\.", r".combine.resample_\1."),
+    (r"\.after_combine\.conv\.", ".after_combine_conv."),
+    (r"_net\.conv_rep\.(\d+)\.", r"_net.conv_rep_\1."),
+    (r"_net\.bn_rep\.(\d+)\.(\d+)\.bn$", r"_net.bn_rep_\1_\2"),
+)
+
+_NORMS = (nn.BatchNorm2d, HeadBatchNorm)
+
+
+def _flax_module_path(module_name: str) -> Tuple[str, ...]:
+    path = module_name
+    for pattern, repl in _PATH_RULES:
+        path = re.sub(pattern, repl, path)
+    return tuple(path.split("."))
+
+
+def _flax_leaf(leaf: str, is_norm: bool) -> Optional[Tuple[str, str]]:
+    """(collection, flax leaf) of a torch parameter / buffer name."""
+    if leaf == "weight":
+        return "params", "scale" if is_norm else "kernel"
+    if leaf in ("bias", "edge_weights"):
+        return "params", leaf
+    if leaf == "running_mean":
+        return "batch_stats", "mean"
+    if leaf == "running_var":
+        return "batch_stats", "var"
+    return None                      # num_batches_tracked: not in flax
+
+
+def _to_torch_layout(arr: np.ndarray, flax_leaf: str) -> np.ndarray:
+    if flax_leaf == "kernel" and arr.ndim == 4:
+        return np.transpose(arr, (3, 2, 0, 1))
+    if flax_leaf == "kernel" and arr.ndim == 2:
+        return np.transpose(arr, (1, 0))
+    return arr
+
+
+def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
+    """Load ``{"params": tree, "batch_stats": tree}`` into ``model`` in
+    place. Strict: raises if a model tensor has no variable, a variable is
+    not consumed, or a shape disagrees."""
+    flat = {(coll,) + key: val for coll in ("params", "batch_stats")
+            for key, val in _flatten(variables.get(coll, {})).items()}
+    state = model.state_dict()
+    new_state, used, missing = {}, set(), []
+    for module_name, module in model.named_modules():
+        is_norm = isinstance(module, _NORMS)
+        tensors = list(module.named_parameters(recurse=False)) + \
+            list(module.named_buffers(recurse=False))
+        for leaf, tensor in tensors:
+            name = f"{module_name}.{leaf}" if module_name else leaf
+            target = _flax_leaf(leaf, is_norm)
+            if target is None:
+                new_state[name] = state[name]
+                continue
+            collection, flax_leaf = target
+            key = (collection,) + _flax_module_path(module_name) + (flax_leaf,)
+            if key not in flat:
+                missing.append(f"{name} <- {'/'.join(key)}")
+                continue
+            arr = _to_torch_layout(np.asarray(flat[key], np.float32), flax_leaf)
+            if tuple(arr.shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: variable {'/'.join(key)} has shape "
+                                 f"{arr.shape}, the model {tuple(tensor.shape)}")
+            new_state[name] = torch.from_numpy(np.ascontiguousarray(arr))
+            used.add(key)
+    unexpected = sorted("/".join(k) for k in set(flat) - used)
+    if missing or unexpected:
+        raise ValueError(f"variables do not match the model: missing "
+                         f"{missing[:10]}, unexpected {unexpected[:10]}")
+    model.load_state_dict(new_state, strict=True)

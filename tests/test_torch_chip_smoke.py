@@ -1,0 +1,48 @@
+"""The measuring helpers of chip_smoke.py, on the CPU: the profiler
+window's device busy time is the union of the device intervals, and
+K1's bound counts the picks this run's data makes."""
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+_PATH = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+_spec = importlib.util.spec_from_file_location("chip_smoke", _PATH)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def _event(start_us, end_us):
+    return SimpleNamespace(time_range=SimpleNamespace(start=start_us,
+                                                      end=end_us))
+
+
+def test_busy_ms_is_the_union_of_device_intervals():
+    # overlapping, nested, disjoint and touching intervals, out of order
+    events = [_event(20, 30), _event(0, 10), _event(5, 15), _event(22, 25),
+              _event(30, 31), _event(40, 40)]
+    assert chip_smoke.busy_ms(events) == pytest.approx((15 + 11) / 1e3)
+    assert chip_smoke.busy_ms([]) == 0.0
+
+
+@pytest.mark.parametrize("picks, soft", [((3, 0), True), ((3, 0), False),
+                                         ((100, 57), True)])
+def test_nms_bound_counts_the_picks_made(picks, soft):
+    n, max_out = 5000, 100
+    keep = torch.full((len(picks), max_out), -1, dtype=torch.int32)
+    for row, made in enumerate(picks):
+        keep[row, :made] = torch.arange(made, dtype=torch.int32)
+    # each image runs its picks and the one that finds nothing, at most
+    # max_out in all
+    iterations = sum(min(made + 1, max_out) for made in picks)
+    ops = iterations * n * (20 if soft else 15)
+    nbytes = len(picks) * (n * 20 + max_out * 8)
+    t_ops = ops / (67e12 / 2)
+    t_bytes = nbytes / 3.35e12
+    bound_ms, by = chip_smoke.nms_bound_ms(keep, n, soft)
+    assert bound_ms == pytest.approx(max(t_ops, t_bytes) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")

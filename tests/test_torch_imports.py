@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: it imports neither jax / flax nor the
+JAX package, and its entry points do not drop to the CPU unasked."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "ood_object_detection_tpu_torch"
+FORBIDDEN = ("jax", "flax", "ood_object_detection_tpu")
+PUBLIC_MODULES = (
+    "ood_object_detection_tpu_torch",
+    "ood_object_detection_tpu_torch.bench",
+    "ood_object_detection_tpu_torch.factory",
+    "ood_object_detection_tpu_torch.data.device_preproc",
+    "ood_object_detection_tpu_torch.ops.post_process",
+    "ood_object_detection_tpu_torch.ops.cuda_nms",
+    "ood_object_detection_tpu_torch.ops.cuda_reduce",
+    "ood_object_detection_tpu_torch.utils.from_jax",
+)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            imported.append(node.module)
+    assert not [m for m in imported if _forbidden(m)]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {PUBLIC_MODULES!r}: __import__(m)\n"
+        "print(sorted(set(sys.modules) - before))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True, timeout=120)
+    loaded = eval(out.stdout.strip().splitlines()[-1])
+    assert "ood_object_detection_tpu_torch.ops.cuda_nms" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_create_model_without_device_needs_cuda(monkeypatch):
+    from ood_object_detection_tpu_torch.factory import create_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("efficientdet_d0", bench_task="predict")
