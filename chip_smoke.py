@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its
+"""Drive the PyTorch port's two paths on one CUDA card and hold its
 hand-written kernels against their plain PyTorch versions.
 
-The main path is EfficientDet-D0 predict at its full width (512 x 512
-input, 90 classes, bf16 compute, gaussian soft-NMS, energy OOD, 5000
-candidates, 100 detections), random weights from a seed:
-uint8 canvases -> letterbox + normalise -> forward -> K2 (packed key +
-energy reduce) -> top-k -> decode -> K1 (NMS) -> survivor energy.
+Both paths run EfficientDet-D0 at its full width (512 x 512 input, 90
+classes, bf16 compute), random weights from a seed:
+  - predict (gaussian soft-NMS, energy OOD, 5000 candidates, 100
+    detections): uint8 canvases -> letterbox + normalise -> forward -> K2
+    (packed key + energy reduce) -> top-k -> decode -> K1 (NMS) ->
+    survivor energy;
+  - train (momentum SGD, clip 10, EMA, freeze_bn='backbone', alpha-only
+    focal + huber loss): padded ground truth [B, 100] -> K3 (anchor match)
+    -> thresholds + force-match -> K4 (target encode) -> forward with
+    train-mode BatchNorm -> loss -> backward -> clipped SGD + EMA.
 
 Phases, each synchronised so that a fault shows where it happened:
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from csrc/ with nvcc, every source at once;
-  3. each kernel vs its plain version on the card, at the main path's
-     shapes, batch 16 and 128, with tied and all-zero inputs;
-  4. the main path answers 3 requests of 16 canvases; the kernels'
-     launch counters must have moved, the outputs must be finite, of the
-     right shapes, with detections, and the plain path on the same batch
-     must keep the same candidates;
-  5. times: each kernel (CUDA events) beside its bound, its plain
-     version and a library call; end to end at batch 16 and 128, images/s
-     and the spread of request times over a window of a few seconds; and
-     where a request's time goes (torch.profiler): device busy time and
-     the card's idle share of the whole request and of each stage
-     (preproc, forward, post-process), and the top device kernels.
+  3. each kernel vs its plain version on the card: K1 / K2 at the predict
+     path's shapes, batch 16 and 128, with tied and all-zero inputs; K3 /
+     K4 at the train path's (49,104 anchors, 100 rows), batch 32 and 128,
+     with identical rows, a row that overlaps no anchor, an all-padding
+     image and a 0.3 / 0.5 ignore band;
+  4. the predict path answers 3 requests of 16 canvases; K1 and K2 must
+     have launched, the outputs must be finite, of the right shapes, with
+     detections, and the plain path on the same batch must keep the same
+     candidates;
+  5. times of the predict path: K1 / K2 (CUDA events) beside their bounds,
+     plain versions and a library call; end to end at batch 16 and 128,
+     images/s and the spread of request times over a window; where a
+     request's time goes (torch.profiler): device busy time and the
+     card's idle share of the request and of each stage, top kernels;
+  6. the train path takes 3 steps at batch 32 through create_model(...,
+     bench_task='train'), create_train_state and make_train_step; K3 and
+     K4 must have launched, the metrics must be finite with positives, the
+     parameters, the EMA and the fpn / head BatchNorm statistics must have
+     moved and the frozen backbone's must not, and the kernel labels must
+     equal the plain labels on the same batch;
+  7. times of the train path: K3 / K4 beside their bounds and plain
+     versions at batch 32 and 128; train steps a second over a window at
+     batch 32 and 128 with the peak device memory; and where a step's
+     time goes (labeling, forward, loss, backward, optimizer + EMA).
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
@@ -32,6 +49,7 @@ Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
 """
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,10 +60,20 @@ from torch.profiler import ProfilerActivity, profile
 
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
+from ood_object_detection_tpu_torch.config import (
+    default_detection_train_config, get_efficientdet_config)
 from ood_object_detection_tpu_torch.factory import create_model
-from ood_object_detection_tpu_torch.ops import cuda_build, cuda_nms, cuda_reduce
+from ood_object_detection_tpu_torch.ops import (cuda_build, cuda_labeler,
+                                                cuda_nms, cuda_reduce)
 from ood_object_detection_tpu_torch.ops import post_process as pp
+from ood_object_detection_tpu_torch.ops.anchors import Anchors
 from ood_object_detection_tpu_torch.ops.nms import batched_nms_plain
+from ood_object_detection_tpu_torch.ops.target_assigner import (
+    batch_label_anchors)
+from ood_object_detection_tpu_torch.train import (create_train_state,
+                                                  make_train_step)
+from ood_object_detection_tpu_torch.train.train_state import (
+    apply_gradients, detection_loss)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, and the f32
 # rate outside the tensor cores. The data sheet's 67 TFLOP/s counts a
@@ -55,14 +83,25 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
 NUM_CLASSES = 90
 BATCH = 16
+TRAIN_BATCH = 32
+MAX_ROWS = 100       # padded ground-truth rows (max_instances_per_image)
 IMG = 512
 WINDOW_S = 2.5       # end-to-end timing window at each batch
 PROFILE_REPS = 10    # calls in each profiler window
+TRAIN_PROFILE_REPS = 3
+# f32 operations of one IoU pair in K3: 2 min, 2 max, 2 sub, 2 clamp, the
+# intersection product, 2 adds of the union, the zero test, the division
+# (counted as one), the running-max compare and the order-preserving key
+MATCH_OPS_PER_PAIR = 17
 REPO_KERNELS = {
     "K1": ("ood_object_detection_tpu_torch/csrc/nms.cu",
            "ood_object_detection_tpu/ops/pallas_nms.py:77"),
     "K2": ("ood_object_detection_tpu_torch/csrc/key_reduce.cu",
            "ood_object_detection_tpu/ops/pallas_reduce.py:79"),
+    "K3": ("ood_object_detection_tpu_torch/csrc/label_match.cu",
+           "ood_object_detection_tpu/ops/pallas_labeler.py:146"),
+    "K4": ("ood_object_detection_tpu_torch/csrc/label_targets.cu",
+           "ood_object_detection_tpu/ops/pallas_labeler.py:201"),
 }
 
 
@@ -187,6 +226,250 @@ def reduce_bound_ms(levels):
         "operations"
 
 
+def ground_truth(batch, gen, cases=False):
+    """Padded ground truth as the JAX package's train_bench makes it
+    (bench.py:183-194): 16 boxes of 16-64 px an image, classes 1-89, padded
+    to MAX_ROWS rows of class -1. With ``cases``: image 0 has two identical
+    rows and a row that overlaps no anchor, image 1 is all padding."""
+    n = 16
+    yx = torch.rand((batch, n, 2), generator=gen, device="cuda") * (IMG - 64)
+    hw = torch.rand((batch, n, 2), generator=gen, device="cuda") * 48 + 16
+    boxes = torch.zeros((batch, MAX_ROWS, 4), device="cuda")
+    boxes[:, :n] = torch.cat([yx, yx + hw], dim=-1)
+    cls = torch.full((batch, MAX_ROWS), -1, dtype=torch.int32, device="cuda")
+    cls[:, :n] = torch.randint(1, 90, (batch, n), generator=gen,
+                               device="cuda", dtype=torch.int32)
+    if cases:
+        boxes[0, 1] = boxes[0, 0]
+        boxes[0, 2] = torch.tensor([4000.0, 4000.0, 4010.0, 4010.0])
+        cls[1] = -1
+    return boxes, cls
+
+
+def label_compare(anchor_boxes, boxes, cls, unmatched):
+    """K3, the match codes and K4 against their plain versions on the same
+    inputs: all bit for bit but the box targets (rtol 1e-5, atol 1e-6).
+    Returns (K3's max abs IoU error, K4's max abs box error, the codes,
+    the best anchor of each row)."""
+    valid = cls > -1
+    k3 = cuda_labeler.batch_match(anchor_boxes, boxes, valid)
+    p3 = cuda_labeler.batch_match_plain(anchor_boxes, boxes, valid)
+    sync()
+    for name, a, b in zip(("IoU values", "rows", "best anchors"), k3, p3):
+        check(torch.equal(a, b), f"K3 {name} differ from the plain version")
+    err_k3 = float((k3[0] - p3[0]).abs().max())
+    codes = cuda_labeler.label_match(*k3, valid, 0.5, unmatched)
+    codes_p = cuda_labeler.label_match(*p3, valid, 0.5, unmatched)
+    check(torch.equal(codes, codes_p), "match codes differ")
+    cls_t, box_t = cuda_labeler.batch_targets(anchor_boxes, boxes, cls, codes)
+    cls_p, box_p = cuda_labeler.batch_targets_plain(anchor_boxes, boxes, cls,
+                                                    codes)
+    sync()
+    check(torch.equal(cls_t, cls_p), "K4 class targets differ")
+    check(torch.allclose(box_t, box_p, rtol=1e-5, atol=1e-6),
+          "K4 box targets differ beyond rtol 1e-5 / atol 1e-6")
+    return err_k3, float((box_t - box_p).abs().max()), codes, k3[2]
+
+
+def match_bound_ms(valid, num_anchors):
+    """Least time for K3: MATCH_OPS_PER_PAIR f32 operations for each valid
+    (row, anchor) pair (a padded row costs the kernel no IoU), against its
+    bytes (anchors and rows in; per-anchor value and row, per-row anchor
+    out)."""
+    b, m = valid.shape
+    pairs = int(valid.sum()) * num_anchors
+    nbytes = num_anchors * 16 + b * m * 17 + b * num_anchors * 8 + b * m * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = pairs * MATCH_OPS_PER_PAIR / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def targets_bound_ms(codes, m):
+    """Least time for K4: each code read once, each class and box target
+    written once, the anchors and rows read once, against about 20
+    operations a positive (the encode)."""
+    b, a = codes.shape
+    nbytes = b * a * (4 + 4 + 16) + a * 16 + b * m * 20
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int((codes >= 0).sum()) * 20 / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def label_kernel_times(anchor_boxes, boxes, cls):
+    """K3 and K4 (CUDA events, after warm-up) beside their bounds and their
+    plain versions on the train path's inputs; no single PyTorch call
+    computes either, so no library time."""
+    valid = cls > -1
+    batch = cls.shape[0]
+    codes = batch_label_anchors(anchor_boxes, boxes, cls).matches
+    k3_bound, k3_by = match_bound_ms(valid, anchor_boxes.shape[0])
+    k4_bound, k4_by = targets_bound_ms(codes, cls.shape[1])
+    k3 = dict(
+        ms=cuda_ms(lambda: cuda_labeler.batch_match(anchor_boxes, boxes,
+                                                    valid), 50),
+        plain_ms=cuda_ms(lambda: cuda_labeler.batch_match_plain(
+            anchor_boxes, boxes, valid), 3),
+        bound_ms=k3_bound, bound_by=k3_by, library_ms=None)
+    k4 = dict(
+        ms=cuda_ms(lambda: cuda_labeler.batch_targets(anchor_boxes, boxes,
+                                                      cls, codes), 50),
+        plain_ms=cuda_ms(lambda: cuda_labeler.batch_targets_plain(
+            anchor_boxes, boxes, cls, codes), 10),
+        bound_ms=k4_bound, bound_by=k4_by, library_ms=None)
+    for name, t in (("K3", k3), ("K4", k4)):
+        log(f"[7] {name} B={batch}: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+    return {"K3": k3, "K4": k4}
+
+
+def train_batch(batch, gen):
+    """Normal images [B, 512, 512, 3] f32 and their padded ground truth."""
+    boxes, cls = ground_truth(batch, gen)
+    image = torch.randn((batch, IMG, IMG, 3), generator=gen, device="cuda")
+    return {"image": image, "bbox": boxes, "cls": cls}
+
+
+def train_path(gen):
+    """Phase 6: 3 train steps at TRAIN_BATCH through the user's entry
+    points, with every check of the phase. Returns (model, state, step,
+    K3 / K4 launches, the labels' max abs box error)."""
+    bench = create_model("efficientdet_d0", bench_task="train",
+                         num_classes=NUM_CLASSES, compute_dtype="bfloat16",
+                         seed=0, device="cuda")
+    tcfg = default_detection_train_config()
+    state, tx = create_train_state(bench, tcfg)
+    step = make_train_step(bench, tx, bench.anchors, tcfg,
+                           freeze_bn="backbone")
+    model = bench.model
+    before = {n: t.detach().clone() for n, t in
+              list(model.named_parameters()) + list(model.named_buffers())}
+    ema_before = {n: e.clone() for n, e in state.ema_params.items()}
+    batches = [train_batch(TRAIN_BATCH, gen) for _ in range(3)]
+    sync()
+    reset_launches()
+    metrics = []
+    for batch in batches:
+        state, m = step(state, batch)
+        metrics.append(m)
+    sync()
+    launches = {"K3": cuda_labeler.batch_match.launches,
+                "K4": cuda_labeler.batch_targets.launches}
+    log(f"[6] train path: 3 steps x {TRAIN_BATCH} images, launches "
+        f"{launches}")
+    check(launches["K3"] > 0 and launches["K4"] > 0,
+          f"a kernel of the train path never launched: {launches}")
+    for i, m in enumerate(metrics):
+        values = {k: float(v) for k, v in m.items()}
+        log(f"[6] step {i + 1}: {values}")
+        check(all(math.isfinite(v) for v in values.values()),
+              f"non-finite metrics at step {i + 1}")
+        check(values["num_positives"] > 0, f"no positives at step {i + 1}")
+    check(state.step == 3, "the step counter did not reach 3")
+
+    now = model.state_dict()
+    moved = {n for n, t in before.items() if not torch.equal(now[n], t)}
+    params = [n for n, _ in model.named_parameters()]
+    stats = [n for n in before if n.endswith(("running_mean", "running_var"))]
+    head_stats = [n for n in stats if not n.startswith("backbone.")]
+    # a parameter with no gradient (a box-head BatchNorm of a level with no
+    # positives) keeps its value under momentum SGD, as under optax
+    for group in ("backbone.", "fpn.", "class_net.", "box_net."):
+        check(any(n in moved for n in params if n.startswith(group)),
+              f"no parameter of {group[:-1]} moved")
+    check(any(not torch.equal(e, ema_before[n])
+              for n, e in state.ema_params.items()), "the EMA did not move")
+    # every running variance moves; a running mean may stay at 0 where the
+    # batch mean is exactly 0 (a map of two samples normalised to +-1)
+    check(moved.issuperset(n for n in head_stats if n.endswith("_var"))
+          and len(moved.intersection(head_stats)) > len(head_stats) // 2,
+          "fpn / head BatchNorm statistics did not move")
+    check(not moved.intersection(set(stats) - set(head_stats)),
+          "frozen backbone BatchNorm statistics moved")
+    log(f"[6] {len(moved.intersection(params))} of {len(params)} "
+        f"parameters, the EMA and {len(moved.intersection(head_stats))} of "
+        f"{len(head_stats)} fpn / head BatchNorm statistics moved; the "
+        f"backbone's stayed")
+
+    # the kernel and plain labels on the last batch
+    batch = batches[-1]
+    labels = batch_label_anchors(bench.anchor_boxes, batch["bbox"],
+                                 batch["cls"])
+    plain = batch_label_anchors(bench.anchor_boxes, batch["bbox"],
+                                batch["cls"], kernels=False)
+    sync()
+    for f in ("matches", "cls_targets", "num_positives"):
+        check(torch.equal(getattr(labels, f), getattr(plain, f)),
+              f"train batch: kernel and plain {f} differ")
+    check(torch.allclose(labels.box_targets, plain.box_targets, rtol=1e-5,
+                         atol=1e-6), "train batch: box targets differ")
+    err = float((labels.box_targets - plain.box_targets).abs().max())
+    log(f"[6] kernel and plain labels equal on the train batch "
+        f"({int(labels.num_positives.sum())} positives), box max abs err "
+        f"{err:.3g}")
+    return bench, state, step, tx, tcfg, launches, err
+
+
+def train_throughput(bench, state, step, tx, tcfg, batch_size, gen):
+    """Train steps over a WINDOW_S window at ``batch_size`` (each ending in
+    a synchronise): images/s, the median / least / most step time, the
+    peak device memory; then where a step's time goes (profile_window of
+    the whole step and of its stages) and its top device kernels."""
+    batch = train_batch(batch_size, gen)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    sync()
+    times = []
+    start = time.perf_counter()
+    while time.perf_counter() - start < WINDOW_S:
+        t0 = time.perf_counter()
+        step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    times.sort()
+    log(f"[7] train B={batch_size}: {batch_size * len(times) * 1e3 / sum(times)}"
+        f" images/s over {len(times)} steps; step ms median "
+        f"{times[len(times) // 2]}, min {times[0]}, max {times[-1]}; peak "
+        f"memory {peak:.2f} GiB")
+
+    model = bench.model
+    anchors = bench.anchor_boxes
+
+    def label():
+        return batch_label_anchors(anchors, batch["bbox"], batch["cls"])
+    labels = label()
+
+    def forward():
+        model.train_bn("backbone")
+        return model(batch["image"])
+
+    def loss():
+        return detection_loss(model.config, *forward(), labels)[0]
+
+    def backward():
+        tx.zero_grad()
+        loss().backward()
+
+    stages = {"step": lambda: step(state, batch), "labeling": label,
+              "forward": forward, "forward+loss": loss,
+              "forward+loss+backward": backward,
+              "optimizer+EMA": lambda: apply_gradients(state, tx, tcfg)}
+    top = collections.Counter()
+    for name, fn in stages.items():
+        numbers, device = profile_window(fn, TRAIN_PROFILE_REPS)
+        log(f"[7] profile train B={batch_size} {name}: " + ", ".join(
+            f"{k} {v}" for k, v in numbers.items()))
+        if name == "step":
+            for e in device:
+                top[e.name[:80]] += (e.time_range.end - e.time_range.start
+                                     ) / 1e3 / TRAIN_PROFILE_REPS
+    for name, ms in top.most_common(12):
+        log(f"[7] top kernel train B={batch_size}: {ms:.4f} ms {name}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -224,6 +507,29 @@ def main():
             err = k1_compare(boxes, scores, soft)
             log(f"[3] K1 [{batch}, 5000] soft={soft}: keep equal, "
                 f"score max abs err {err:.3g}")
+    anchor_boxes = torch.from_numpy(Anchors.from_config(
+        get_efficientdet_config("efficientdet_d0")).boxes).cuda()
+    label_inputs = {}
+    for batch in (TRAIN_BATCH, 128):
+        boxes, cls = ground_truth(batch, gen, cases=True)
+        label_inputs[batch] = (boxes, cls)
+        for unmatched in (0.5, 0.3):
+            err_k3, err, codes, best = label_compare(anchor_boxes, boxes,
+                                                     cls, unmatched)
+            check(bool((codes[1] == -1).all()), "all-padding image matched")
+            check(int(best[0, 0]) == int(best[0, 1])
+                  and int(codes[0, best[0, 0]]) == 0,
+                  "identical rows: the lower row must take the anchor")
+            check(int(best[0, 2]) == 0 and int(codes[0, 0]) == 2,
+                  "a row overlapping nothing must claim anchor 0")
+            check(bool((codes == -2).any()) == (unmatched < 0.5),
+                  "ignore band")
+            log(f"[3] K3 / K4 [{batch}, {MAX_ROWS}] x {anchor_boxes.shape[0]}"
+                f" anchors, unmatched {unmatched}: match and codes "
+                f"bit-exact, class targets equal, box max abs err {err:.3g}"
+                f", {int((codes == -2).sum())} ignored")
+            if batch == TRAIN_BATCH:
+                err_match = err_k3
     sync()
 
     # 4. main path: 3 requests of 16 canvases
@@ -235,8 +541,7 @@ def main():
     bench.model.class_net.predict_bias().view(9, NUM_CLASSES)[:, :3] += 2.0
     requests = [canvases(BATCH, gen) for _ in range(3)]
     sync()
-    cuda_nms.batched_nms.launches = 0
-    cuda_reduce.key_energy_reduce.launches = 0
+    reset_launches()
     for imgs, hw in requests:
         pre = batched_letterbox_normalize(imgs, hw, target_hw=(IMG, IMG),
                                           out_dtype="bfloat16")
@@ -287,6 +592,21 @@ def main():
     for batch in (BATCH, 128):
         throughput(bench, batch, gen)
     sync()
+    del bench, cls, box, requests, cand_k, cand_p
+    torch.cuda.empty_cache()
+
+    # 6. the train path, 3 steps at batch 32; 7. its times
+    with torch.enable_grad():
+        train = train_path(gen)
+        err_label = train[-1]
+        launches.update(train[-2])
+        for batch in (TRAIN_BATCH, 128):
+            t_label = label_kernel_times(anchor_boxes, *label_inputs[batch])
+            if batch == TRAIN_BATCH:
+                t.update(t_label)
+        for batch in (TRAIN_BATCH, 128):
+            train_throughput(*train[:5], batch, gen)
+    sync()
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
@@ -295,6 +615,13 @@ def main():
         dict(name="K2 packed key + energy reduce", route="cuda",
              source=REPO_KERNELS["K2"][0], replaces=REPO_KERNELS["K2"][1],
              launches=launches["K2"], max_abs_err=err_k2, **t["K2"]),
+        dict(name="K3 anchor match (IoU, per-anchor and per-row argmax)",
+             route="cuda", source=REPO_KERNELS["K3"][0],
+             replaces=REPO_KERNELS["K3"][1], launches=launches["K3"],
+             max_abs_err=err_match, **t["K3"]),
+        dict(name="K4 target encode (class and box targets)", route="cuda",
+             source=REPO_KERNELS["K4"][0], replaces=REPO_KERNELS["K4"][1],
+             launches=launches["K4"], max_abs_err=err_label, **t["K4"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -302,6 +629,13 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def reset_launches():
+    """Every kernel's launch count to 0 (before a path is driven)."""
+    for fn in (cuda_nms.batched_nms, cuda_reduce.key_energy_reduce,
+               cuda_labeler.batch_match, cuda_labeler.batch_targets):
+        fn.launches = 0
 
 
 def kernel_times(cand, cls, info):

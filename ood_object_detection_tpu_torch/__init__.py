@@ -8,8 +8,8 @@ The port imports torch and numpy only, never jax or the JAX package.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the hand-written kernels (ops/cuda_nms.py,
-ops/cuda_reduce.py) launch for CUDA tensors and use their plain PyTorch
-versions for CPU tensors.
+ops/cuda_reduce.py, ops/cuda_labeler.py) launch for CUDA tensors and use
+their plain PyTorch versions for CPU tensors.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
-"""Prediction bench: EfficientDet + anchors + post-process as one module.
+"""Task benches: EfficientDet + anchors + post-process (predict) or
+labeler + loss (train) as one module.
 
-Port of ``ood_object_detection_tpu.bench.DetBenchPredict``. The train
-bench is a later slice.
+Port of ``ood_object_detection_tpu.bench``: ``DetBenchPredict``,
+``DetBenchTrain`` and ``unwrap_bench``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ from torch import nn
 
 from .models.efficientdet import EfficientDet
 from .ops.anchors import Anchors
+from .ops.losses import detection_loss_flat, levels_to_flat
 from .ops.post_process import generate_detections
+from .ops.target_assigner import batch_label_anchors
 
 
 class DetBenchPredict(nn.Module):
@@ -51,3 +54,71 @@ class DetBenchPredict(nn.Module):
             max_detection_points=cfg.max_detection_points,
             max_det_per_image=cfg.max_det_per_image, soft_nms=cfg.soft_nms,
             ood_method=self.ood_method, topk_method=cfg.topk_method)
+
+
+class DetBenchTrain(nn.Module):
+    """(images, padded ground truth) -> loss dict, labeling the anchors on
+    the images' device (K3 / K4 on the card).
+
+    ``target`` holds 'bbox' [B, M, 4] yxyx and 'cls' [B, M] (1-based, -1
+    padding); with ``create_labeler=False`` and 'label_num_positives' in
+    it, the precomputed flat labels 'label_cls' [B, A] / 'label_bbox'
+    [B, A, 4] / 'label_num_positives' [B] are used instead. The module's
+    train / eval mode selects batch or running BatchNorm statistics; in
+    train mode the running statistics update in place. Returns {'loss',
+    'class_loss', 'box_loss'}, plus 'detections' [B, max_det, 6] with
+    ``eval_detections`` (then 'img_scale' / 'img_size' in ``target`` are
+    used where present).
+    """
+
+    def __init__(self, model: EfficientDet, create_labeler: bool = True):
+        super().__init__()
+        self.model = model
+        self.config = model.config
+        self.anchors = Anchors.from_config(model.config)
+        self.create_labeler = create_labeler
+        self.register_buffer("anchor_boxes",
+                             torch.from_numpy(self.anchors.boxes),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor, target: Dict[str, torch.Tensor],
+                eval_detections: bool = False) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        cls_out, box_out = self.model(x)
+        if not self.create_labeler and "label_num_positives" in target:
+            cls_targets = target["label_cls"]
+            box_targets = target["label_bbox"]
+            num_positives = target["label_num_positives"]
+        else:
+            labels = batch_label_anchors(self.anchor_boxes, target["bbox"],
+                                         target["cls"])
+            cls_targets = labels.cls_targets
+            box_targets = labels.box_targets
+            num_positives = labels.num_positives
+        total, cls_loss, box_loss = detection_loss_flat(
+            levels_to_flat(cls_out, cfg.num_classes),
+            levels_to_flat(box_out, 4),
+            cls_targets, box_targets, num_positives,
+            num_classes=cfg.num_classes, alpha=cfg.alpha, gamma=cfg.gamma,
+            delta=cfg.delta, box_loss_weight=cfg.box_loss_weight,
+            label_smoothing=cfg.label_smoothing,
+            legacy_focal=cfg.legacy_focal,
+            focal_modulation=cfg.focal_modulation)
+        output = {"loss": total, "class_loss": cls_loss, "box_loss": box_loss}
+        if eval_detections:
+            with torch.no_grad():
+                output["detections"], _ = generate_detections(
+                    [c.detach() for c in cls_out],
+                    [b.detach() for b in box_out], self.anchors,
+                    num_classes=cfg.num_classes,
+                    img_scale=target.get("img_scale"),
+                    img_size=target.get("img_size"),
+                    max_detection_points=cfg.max_detection_points,
+                    max_det_per_image=cfg.max_det_per_image,
+                    soft_nms=cfg.soft_nms, topk_method=cfg.topk_method)
+        return output
+
+
+def unwrap_bench(bench: nn.Module) -> nn.Module:
+    """The model inside a bench (the bench itself if it has none)."""
+    return getattr(bench, "model", bench)

@@ -1,8 +1,8 @@
-"""Model factory: zoo name -> EfficientDet, or its predict bench, on a
-device.
+"""Model factory: zoo name -> EfficientDet, or its predict / train bench,
+on a device.
 
-Port of ``ood_object_detection_tpu.factory`` for ``bench_task`` '' and
-'predict'. The weights are drawn from a ``torch.Generator`` seeded with
+Port of ``ood_object_detection_tpu.factory`` (``bench_task`` '', 'predict'
+and 'train'). The weights are drawn from a ``torch.Generator`` seeded with
 ``seed`` (the JAX package's initialisers, focal prior bias on the class
 predict conv); trained weights come in through
 ``utils.from_jax.load_jax_variables``. No checkpoint file is read.
@@ -13,7 +13,7 @@ from typing import Optional, Union
 
 import torch
 
-from .bench import DetBenchPredict
+from .bench import DetBenchPredict, DetBenchTrain
 from .config.model_config import ModelConfig, get_efficientdet_config
 from .models.efficientdet import EfficientDet
 
@@ -39,8 +39,8 @@ def create_model(model_name: str = "tf_efficientdet_d1",
                  ood_method: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  **config_overrides):
-    """Build a model by zoo name (optionally wrapped in a predict bench)
-    on ``device``: the CUDA card when None (raises without one), or the
+    """Build a model by zoo name (optionally wrapped in a predict or train
+    bench) on ``device``: the CUDA card when None (raises without one), or the
     device named. ``config_overrides`` go into the model config."""
     config = get_efficientdet_config(model_name)
     if num_classes is not None:
@@ -55,15 +55,18 @@ def create_model_from_config(config: ModelConfig, bench_task: str = "",
                              seed: int = 0,
                              ood_method: Optional[str] = None,
                              device: Optional[Union[str, torch.device]] = None):
-    """EfficientDet (``bench_task=''``) or DetBenchPredict (``'predict'``)
-    with seeded weights, in eval mode, channels_last, on ``device``."""
-    if bench_task not in ("", "predict"):
-        raise NotImplementedError(
-            f"bench_task {bench_task!r} is not ported yet ('' or 'predict')")
+    """EfficientDet (``bench_task=''``), DetBenchPredict (``'predict'``)
+    or DetBenchTrain (``'train'``) with seeded weights, channels_last, on
+    ``device``; the train bench in train mode, the others in eval mode."""
+    if bench_task not in ("", "predict", "train"):
+        raise ValueError(f"bench_task {bench_task!r} is not one of '', "
+                         "'predict', 'train'")
     device = resolve_device(device)
     model = EfficientDet(config)
     model.init_weights(torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last).eval()
     if bench_task == "predict":
         return DetBenchPredict(model, ood_method=ood_method).eval()
+    if bench_task == "train":
+        return DetBenchTrain(model).to(device).train()
     return model

@@ -8,7 +8,8 @@ port's state_dict is the reference effdet layout that
 ``utils/from_jax.py`` maps to and from the JAX tree.
 
 MixNet, the edge / lite / MobileNet / ResNet / CSP families wait for a
-later slice; ``create_backbone`` refuses them by name.
+later slice; ``create_backbone`` refuses them by name. Every BatchNorm
+(stem, ``_DsBlock``, ``_IrBlock``) follows the module's train / eval mode.
 """
 from __future__ import annotations
 
@@ -205,8 +206,17 @@ class GenericBackbone(nn.Module):
         return [features[r] for r in self.out_reductions]
 
 
-def create_backbone(name: str, **backbone_args):
-    """Backbone module + feature_info [{num_chs, reduction}] by zoo name."""
+def create_backbone(name: str, drop_path_rate: float = 0.0,
+                    remat_stages: int = 0, **backbone_args):
+    """Backbone module + feature_info [{num_chs, reduction}] by zoo name.
+
+    Stochastic depth (``drop_path_rate > 0``) and rematerialised stages
+    (``remat_stages > 0``) are not ported yet and raise; so does any other
+    backbone argument."""
+    if drop_path_rate > 0.0:
+        raise NotImplementedError("drop_path_rate > 0 is not ported yet")
+    if remat_stages > 0:
+        raise NotImplementedError("remat_stages > 0 is not ported yet")
     if backbone_args:
         raise NotImplementedError(
             f"backbone_args {sorted(backbone_args)} are not ported yet")

@@ -10,7 +10,12 @@ head's outputs in place.
 
 The input is cast to ``config.compute_dtype`` once, as in the JAX model
 (``efficientdet.py:93``); the parameters stay f32 and are cast per op.
-Inference only: the train step is a later slice.
+
+Train / eval mode selects the BatchNorm statistics, as the JAX model's
+``training`` flag does: ``train_bn(freeze_bn)`` puts the model in train
+mode with the BatchNorm of the frozen scope in eval mode (the JAX train
+step's ``freeze_bn``). The ``remat_fpn`` / ``remat_heads`` options are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from .backbone import create_backbone
 from .bifpn import BiFpn
 from .heads import PRIOR_BIAS, HeadNet
 from .layers import Conv2d, init_conv_
+
+FREEZE_BN_SCOPES = ("none", "backbone", "all")
 
 
 def _nchw(xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -40,6 +47,9 @@ class EfficientDet(nn.Module):
         super().__init__()
         if config.separate_head:
             raise NotImplementedError("separate_head is not ported yet")
+        if config.remat_fpn or config.remat_heads:
+            raise NotImplementedError("remat_fpn / remat_heads are not "
+                                      "ported yet")
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.backbone, feature_info = create_backbone(
@@ -59,6 +69,22 @@ class EfficientDet(nn.Module):
             if isinstance(module, Conv2d):
                 init_conv_(module, generator)
         self.class_net.predict_bias().fill_(PRIOR_BIAS)
+
+    def train_bn(self, freeze_bn: str = "none") -> "EfficientDet":
+        """Train mode, with the BatchNorm of the ``freeze_bn`` scope in eval
+        mode: 'none', 'backbone' (backbone BN frozen) or 'all' (every BN
+        frozen). Frozen BN normalises with, and keeps, its running
+        statistics; gradients still reach its scale and bias."""
+        if freeze_bn not in FREEZE_BN_SCOPES:
+            raise ValueError(f"freeze_bn {freeze_bn!r} not in "
+                             f"{FREEZE_BN_SCOPES}")
+        self.train()
+        if freeze_bn != "none":
+            self.backbone.eval()
+        if freeze_bn == "all":
+            for module in (self.fpn, self.class_net, self.box_net):
+                module.eval()
+        return self
 
     def _image(self, x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 3, 1, 2).to(self.compute_dtype)

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..config.model_config import ModelConfig
-from .layers import ConvBnAct, SeparableConv, get_act
+from .layers import ConvBnAct, SeparableConv, get_act, update_running_stats
 
 # focal-loss prior: the class predict bias starts at -log((1 - p) / p)
 PRIOR_PROB = 0.01
@@ -22,17 +22,24 @@ PRIOR_BIAS = -math.log((1 - PRIOR_PROB) / PRIOR_PROB)
 
 
 class HeadBatchNorm(nn.Module):
-    """Inference BatchNorm that normalises in the input's dtype.
+    """BatchNorm that normalises in the input's dtype.
 
     The JAX ``HeadBatchNorm`` casts its f32 statistics and affine to the
     compute dtype and does every operation there (``heads.py:69-71``);
     this module does the same, so a bf16 head rounds where the JAX one
     does. Parameter / buffer names are those of ``nn.BatchNorm2d``.
+
+    Train mode (``module.train()``) normalises with the batch statistics,
+    computed in f32 as ``jnp.mean`` / ``jnp.var`` do (two passes: the mean,
+    then the mean squared deviation), and updates the running statistics
+    in place with the biased variance, ``ra = (1 - m) * ra + m * batch``.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -40,13 +47,20 @@ class HeadBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        if self.training:
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2, 3))
+            centred = x32 - mean.view(1, -1, 1, 1)
+            var = (centred * centred).mean(dim=(0, 2, 3))
+            update_running_stats(self, mean, var, 1 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
 
         def vec(t):
             return t.to(dt).view(1, -1, 1, 1)
 
         eps = torch.tensor(self.eps, dtype=dt).item()   # rounded to dt
-        y = (x - vec(self.running_mean)) * torch.rsqrt(
-            vec(self.running_var) + eps)
+        y = (x - vec(mean)) * torch.rsqrt(vec(var) + eps)
         return y * vec(self.weight) + vec(self.bias)
 
 
@@ -65,8 +79,10 @@ class HeadNet(nn.Module):
                      init_kind=init_kind)
             for _ in range(cfg.box_class_repeats)])
         self.bn_rep = nn.ModuleList([
-            nn.ModuleList([nn.ModuleDict({"bn": HeadBatchNorm(ch, cfg.norm_eps)})
-                           for _ in range(cfg.num_levels)])
+            nn.ModuleList([
+                nn.ModuleDict({"bn": HeadBatchNorm(ch, cfg.norm_eps,
+                                                   cfg.norm_momentum)})
+                for _ in range(cfg.num_levels)])
             for _ in range(cfg.box_class_repeats)])
         self.predict = conv_cls(
             ch, num_outputs * cfg.num_anchors_per_location, kernel_size=3,

@@ -120,10 +120,21 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm with eps 1e-3: f32 statistics and affine applied
-    to a low-precision input, output in the input's dtype (flax BatchNorm
-    with ``dtype=compute_dtype``). Training-mode statistics belong to the
-    train step, which is not ported yet (EfficientDet refuses train mode).
+    """BatchNorm with eps 1e-3 and flax ``nn.BatchNorm`` semantics (the JAX
+    package's ``layers.batch_norm``, ``dtype=compute_dtype``).
+
+    Eval mode normalises with the running statistics: f32 statistics and
+    affine applied to a low-precision input, output in the input's dtype.
+
+    Train mode (``module.train()``) normalises with the batch statistics,
+    as flax's ``_compute_stats`` / ``_normalize`` do: mean and variance
+    over (N, H, W) in f32 from the input, the variance as E[x^2] - E[x]^2
+    clipped at 0 (flax ``use_fast_variance``), normalise and apply the
+    affine in f32, cast back to the input's dtype. The running statistics
+    are then updated in place, under no_grad, with the biased batch
+    variance: ``ra = (1 - m) * ra + m * batch`` with ``m = momentum``.
+    ``F.batch_norm(training=True)`` is not used: it updates the running
+    variance with the unbiased variance (N / (N - 1) larger).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -131,8 +142,27 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        update_running_stats(self, mean, var, 1.0 - self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+            + self.bias.view(1, -1, 1, 1)
+        return y.to(x.dtype)
+
+
+@torch.no_grad()
+def update_running_stats(norm: nn.Module, mean: torch.Tensor,
+                         var: torch.Tensor, keep: float) -> None:
+    """``ra = keep * ra + (1 - keep) * batch`` for the running mean and the
+    running (biased) variance, in place."""
+    norm.running_mean.copy_(keep * norm.running_mean + (1 - keep) * mean)
+    norm.running_var.copy_(keep * norm.running_var + (1 - keep) * var)
 
 
 class ConvBnAct(nn.Module):

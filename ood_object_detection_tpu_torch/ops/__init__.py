@@ -1,2 +1,3 @@
-"""Box math, post-processing and the hand-written CUDA kernels (K1 NMS in
-``cuda_nms``, K2 key + energy reduce in ``cuda_reduce``)."""
+"""Box math, labeling, losses, post-processing and the hand-written CUDA
+kernels: K1 NMS (``cuda_nms``), K2 key + energy reduce (``cuda_reduce``),
+K3 anchor match and K4 target encode (``cuda_labeler``)."""

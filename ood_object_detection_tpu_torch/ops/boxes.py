@@ -1,12 +1,38 @@
-"""Box clipping (port of ``ood_object_detection_tpu.ops.boxes``, the part
-the predict path uses).
+"""Box geometry: areas, pairwise IoU and clipping (port of
+``ood_object_detection_tpu.ops.boxes``).
 
-Box layouts: ``yxyx`` = [ymin, xmin, ymax, xmax] (anchors), ``xyxy`` =
-[xmin, ymin, xmax, ymax] (detections).
+Box layouts: ``yxyx`` = [ymin, xmin, ymax, xmax] (anchors, ground truth),
+``xyxy`` = [xmin, ymin, xmax, ymax] (detections).
 """
 from __future__ import annotations
 
 import torch
+
+
+def area_yxyx(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of [..., 4] yxyx boxes."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def pairwise_iou_yxyx(boxes1: torch.Tensor, boxes2: torch.Tensor
+                      ) -> torch.Tensor:
+    """Pairwise IoU of [..., N, 4] and [..., M, 4] yxyx boxes -> [..., N, M].
+
+    Pairs that do not intersect get exactly 0 (no 0/0). The operations and
+    their order are those of the JAX function, ``(area1 + area2) - inter``
+    included, so the hand-written match kernel (csrc/label_match.cu) can
+    reproduce every value bit for bit.
+    """
+    ymin1, xmin1, ymax1, xmax1 = (t.unsqueeze(-1) for t in boxes1.unbind(-1))
+    ymin2, xmin2, ymax2, xmax2 = (t.unsqueeze(-2) for t in boxes2.unbind(-1))
+    inter_h = torch.clamp(torch.minimum(ymax1, ymax2)
+                          - torch.maximum(ymin1, ymin2), min=0.0)
+    inter_w = torch.clamp(torch.minimum(xmax1, xmax2)
+                          - torch.maximum(xmin1, xmin2), min=0.0)
+    inter = inter_h * inter_w
+    union = area_yxyx(boxes1).unsqueeze(-1) + area_yxyx(boxes2).unsqueeze(-2) \
+        - inter
+    return torch.where(inter == 0.0, torch.zeros_like(inter), inter / union)
 
 
 def clip_boxes_xyxy(boxes: torch.Tensor, size_hw: torch.Tensor) -> torch.Tensor:

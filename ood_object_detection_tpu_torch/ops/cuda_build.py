@@ -27,10 +27,13 @@ BUILD_DIR = CSRC / "build"
 BASE_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# nms.cu: no FMA contraction, so the IoU rounds like the plain version
+# no FMA contraction where a kernel must round like its plain version:
+# the IoU of nms.cu and label_match.cu, the box encode of label_targets.cu
 SOURCES: Dict[str, Tuple[str, ...]] = {
     "nms.cu": ("-fmad=false",),
     "key_reduce.cu": (),
+    "label_match.cu": ("-fmad=false",),
+    "label_targets.cu": ("-fmad=false",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

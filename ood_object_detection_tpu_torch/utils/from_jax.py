@@ -21,6 +21,9 @@ of the JAX package's torch-name converter
 Layouts: conv ``[kh, kw, in/g, out]`` -> ``[out, in/g, kh, kw]``; dense
 ``[in, out]`` -> ``[out, in]``; norm ``scale/bias`` -> ``weight/bias`` and
 ``batch_stats`` ``mean/var`` -> ``running_mean/running_var``.
+
+``load_jax_ema`` carries a JAX train state's ``ema_params`` tree into the
+port's EMA copy the same way.
 """
 from __future__ import annotations
 
@@ -86,14 +89,15 @@ def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict:
     return flat
 
 
-def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
-    """Load ``{"params": tree, "batch_stats": tree}`` into ``model`` in
-    place. Strict: raises if a model tensor has no variable, a variable is
-    not consumed, or a shape disagrees."""
-    flat = {(coll,) + key: val for coll in ("params", "batch_stats")
+def _jax_tensors(model: nn.Module, variables: Dict[str, Any],
+                 collections: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """{state_dict name: tensor} of every model tensor that maps into one of
+    ``collections``, from the JAX tree. Strict: raises if such a tensor
+    has no variable, a variable of those collections is not consumed, or a
+    shape disagrees."""
+    flat = {(coll,) + key: val for coll in collections
             for key, val in _flatten(variables.get(coll, {})).items()}
-    state = model.state_dict()
-    new_state, used, missing = {}, set(), []
+    tensors_out, used, missing = {}, set(), []
     for module_name, module in model.named_modules():
         is_norm = isinstance(module, _NORMS)
         tensors = list(module.named_parameters(recurse=False)) + \
@@ -101,22 +105,51 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
         for leaf, tensor in tensors:
             name = f"{module_name}.{leaf}" if module_name else leaf
             target = _flax_leaf(leaf, is_norm)
-            if target is None:
-                new_state[name] = state[name]
+            if target is None or target[0] not in collections:
                 continue
             collection, flax_leaf = target
             key = (collection,) + _flax_module_path(module_name) + (flax_leaf,)
             if key not in flat:
                 missing.append(f"{name} <- {'/'.join(key)}")
                 continue
-            arr = _to_torch_layout(np.asarray(flat[key], np.float32), flax_leaf)
+            arr = _to_torch_layout(np.array(flat[key], np.float32), flax_leaf)
             if tuple(arr.shape) != tuple(tensor.shape):
                 raise ValueError(f"{name}: variable {'/'.join(key)} has shape "
                                  f"{arr.shape}, the model {tuple(tensor.shape)}")
-            new_state[name] = torch.from_numpy(np.ascontiguousarray(arr))
+            tensors_out[name] = torch.from_numpy(np.ascontiguousarray(arr))
             used.add(key)
     unexpected = sorted("/".join(k) for k in set(flat) - used)
     if missing or unexpected:
         raise ValueError(f"variables do not match the model: missing "
                          f"{missing[:10]}, unexpected {unexpected[:10]}")
-    model.load_state_dict(new_state, strict=True)
+    return tensors_out
+
+
+def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
+    """Load ``{"params": tree, "batch_stats": tree}`` into ``model`` in
+    place. Strict: raises if a model tensor has no variable, a variable is
+    not consumed, or a shape disagrees."""
+    state = model.state_dict()
+    state.update(_jax_tensors(model, variables, ("params", "batch_stats")))
+    model.load_state_dict(state, strict=True)
+
+
+def load_jax_ema(ema_params: Dict[str, torch.Tensor], model: nn.Module,
+                 jax_ema_params: Dict[str, Any]) -> None:
+    """Copy a JAX ``TrainState.ema_params`` tree into the port's EMA copy
+    (``train.TrainState.ema_params``: the model's parameter names ->
+    tensors), in place, with the same strictness as
+    ``load_jax_variables``.
+
+    With ``load_jax_variables`` for the parameters and BatchNorm
+    statistics, this starts the port's train state from a JAX one. The
+    optimizer state is not carried: a fresh state is zero on both sides
+    (optax's momentum trace, torch's momentum buffer), so a port state
+    made by ``create_train_state`` matches a fresh JAX state.
+    """
+    tensors = _jax_tensors(model, {"params": jax_ema_params}, ("params",))
+    if sorted(tensors) != sorted(ema_params):
+        raise ValueError("the EMA copy does not hold the model's parameters")
+    with torch.no_grad():
+        for name, value in tensors.items():
+            ema_params[name].copy_(value)

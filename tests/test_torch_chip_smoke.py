@@ -46,3 +46,30 @@ def test_nms_bound_counts_the_picks_made(picks, soft):
     bound_ms, by = chip_smoke.nms_bound_ms(keep, n, soft)
     assert bound_ms == pytest.approx(max(t_ops, t_bytes) * 1e3, rel=1e-12)
     assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def test_match_bound_counts_the_valid_pairs():
+    """K3's bound: MATCH_OPS_PER_PAIR operations for each valid (row,
+    anchor) pair of this run's data, or its bytes, whichever is larger."""
+    a = 49104
+    for rows in ((16, 0), (100, 100)):
+        valid = torch.zeros((len(rows), 100), dtype=torch.bool)
+        for i, n in enumerate(rows):
+            valid[i, :n] = True
+        t_ops = sum(rows) * a * chip_smoke.MATCH_OPS_PER_PAIR / (67e12 / 2)
+        t_bytes = (a * 16 + len(rows) * 100 * 21
+                   + len(rows) * a * 8) / 3.35e12
+        bound_ms, by = chip_smoke.match_bound_ms(valid, a)
+        assert bound_ms == pytest.approx(max(t_ops, t_bytes) * 1e3,
+                                         rel=1e-12)
+        assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def test_targets_bound_counts_bytes_and_positives():
+    codes = torch.full((2, 1000), -1, dtype=torch.int32)
+    codes[0, :30] = 3
+    t_bytes = (2 * 1000 * 24 + 1000 * 16 + 2 * 100 * 20) / 3.35e12
+    t_ops = 30 * 20 / (67e12 / 2)
+    bound_ms, by = chip_smoke.targets_bound_ms(codes, 100)
+    assert bound_ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert by == "bytes"

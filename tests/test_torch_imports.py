@@ -19,6 +19,12 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.ops.post_process",
     "ood_object_detection_tpu_torch.ops.cuda_nms",
     "ood_object_detection_tpu_torch.ops.cuda_reduce",
+    "ood_object_detection_tpu_torch.ops.cuda_labeler",
+    "ood_object_detection_tpu_torch.ops.target_assigner",
+    "ood_object_detection_tpu_torch.ops.losses",
+    "ood_object_detection_tpu_torch.config.train_config",
+    "ood_object_detection_tpu_torch.train",
+    "ood_object_detection_tpu_torch.train.train_state",
     "ood_object_detection_tpu_torch.utils.from_jax",
 )
 
@@ -54,11 +60,37 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, check=True, timeout=120)
     loaded = eval(out.stdout.strip().splitlines()[-1])
     assert "ood_object_detection_tpu_torch.ops.cuda_nms" in loaded
+    assert "ood_object_detection_tpu_torch.ops.cuda_labeler" in loaded
     assert not [m for m in loaded if _forbidden(m)]
 
 
-def test_create_model_without_device_needs_cuda(monkeypatch):
+@pytest.mark.parametrize("bench_task", ["predict", "train"])
+def test_create_model_without_device_needs_cuda(monkeypatch, bench_task):
     from ood_object_detection_tpu_torch.factory import create_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        create_model("efficientdet_d0", bench_task="predict")
+        create_model("efficientdet_d0", bench_task=bench_task)
+
+
+def test_unported_train_options_raise():
+    """drop_path, remat and a mesh wait for later slices: they raise rather
+    than run something else."""
+    from ood_object_detection_tpu_torch.config import (
+        default_detection_train_config, get_efficientdet_config)
+    from ood_object_detection_tpu_torch.models.efficientdet import (
+        EfficientDet)
+    from ood_object_detection_tpu_torch.ops.anchors import Anchors
+    from ood_object_detection_tpu_torch.train import make_train_step
+    cfg = get_efficientdet_config("efficientdet_d0").replace(
+        image_size=(128, 128))
+    for bad in (dict(backbone_args={"drop_path_rate": 0.2}),
+                dict(backbone_args={"remat_stages": 2}),
+                dict(remat_fpn=True), dict(remat_heads=True)):
+        with pytest.raises(NotImplementedError):
+            EfficientDet(cfg.replace(**bad))
+    model = EfficientDet(cfg)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        make_train_step(model, None, Anchors.from_config(cfg),
+                        default_detection_train_config(), mesh=object())
+    with pytest.raises(ValueError, match="freeze_bn"):
+        model.train_bn("heads")
