@@ -16,17 +16,23 @@ classes, bf16 compute), random weights from a seed:
 Phases, each synchronised so that a fault shows where it happened:
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from csrc/ with nvcc, every source at once;
-  3. each kernel vs its plain version on the card: K1 / K2 at the predict
-     path's shapes, batch 16 and 128, with tied and all-zero inputs; K3 /
-     K4 at the train path's (49,104 anchors, 100 rows), batch 32 and 128,
-     with identical rows, a row that overlaps no anchor, an all-padding
-     image and a 0.3 / 0.5 ignore band;
+  3. each kernel vs its plain version on the card: K2 on tied and random
+     logits at D0@512, batch 16 and 128, on D0@128 levels at batch 3 (a
+     ragged last tile, 9 anchors an image at P7), keys only (energy=False)
+     and at 20 and 21 classes (another even class count, and an odd one);
+     K1 hard and soft at [16, 5000] and [128, 5000] with tied scores and
+     an all-zero image, and at [2, 1001], each at every cluster size 1,
+     2, 4, 8; K3 / K4 at the train path's shapes (49,104 anchors, 100
+     rows), batch 32 and 128, with identical rows, a row that overlaps no
+     anchor, an all-padding image and a 0.3 / 0.5 ignore band;
   4. the predict path answers 3 requests of 16 canvases; K1 and K2 must
-     have launched, the outputs must be finite, of the right shapes, with
-     detections, and the plain path on the same batch must keep the same
-     candidates;
-  5. times of the predict path: K1 / K2 (CUDA events) beside their bounds,
-     plain versions and a library call; end to end at batch 16 and 128,
+     have launched, K2 once a request, the outputs must be finite, of the
+     right shapes, with detections, and the plain path on the same batch
+     must keep the same candidates;
+  5. times of the predict path: K1 / K2 (CUDA events) beside their
+     bounds, plain versions and a library call, K1's time a pick at each
+     cluster size (also on the batch-16 candidates twice over, batch 32)
+     and K2's share of its bytes bound; end to end at batch 16 and 128,
      images/s and the spread of request times over a window; where a
      request's time goes (torch.profiler): device busy time and the
      card's idle share of the request and of each stage, top kernels;
@@ -139,11 +145,17 @@ def level_shapes(batch, img=IMG):
             for lvl in range(3, 8)]
 
 
-def tied_logits(batch, gen):
+def random_logits(batch, gen, img=IMG):
+    """bf16 logits, normal around the focal prior."""
+    return [(torch.randn(shape, generator=gen, device="cuda") * 2.0 - 3.0
+             ).to(torch.bfloat16) for shape in level_shapes(batch, img)]
+
+
+def tied_logits(batch, gen, img=IMG):
     """bf16 logits on a coarse grid (many tied values and packed keys);
     one anchor per level with all classes equal."""
     levels = []
-    for shape in level_shapes(batch):
+    for shape in level_shapes(batch, img):
         x = torch.randn(shape, generator=gen, device="cuda") * 1.5 - 3.0
         x = (torch.round(x * 4) / 4 + 0.0).to(torch.bfloat16)
         x[0, 0, 0, :NUM_CLASSES] = 0.5
@@ -163,27 +175,37 @@ def random_nms_inputs(batch, n, gen):
     return boxes, scores
 
 
-def k2_compare(levels):
-    key, energy = cuda_reduce.key_energy_reduce(levels, NUM_CLASSES, True)
-    key_p, energy_p = cuda_reduce.key_energy_reduce_plain(
-        levels, NUM_CLASSES, True)
+def k2_compare(levels, energy=True, num_classes=NUM_CLASSES):
+    """K2 against its plain version: the key bit for bit, the energy to
+    rtol 1e-5 / atol 1e-5 (f32 summation order). Returns the energy's max
+    abs error (0 for keys only)."""
+    key, en = cuda_reduce.key_energy_reduce(levels, num_classes, energy)
+    key_p, en_p = cuda_reduce.key_energy_reduce_plain(
+        levels, num_classes, energy)
     sync()
     check(torch.equal(key, key_p), "K2 key differs from the plain version")
-    check(torch.allclose(energy, energy_p, rtol=1e-5, atol=1e-5),
+    if not energy:
+        check(en is None, "K2 returned an energy it was not asked for")
+        return 0.0
+    check(torch.allclose(en, en_p, rtol=1e-5, atol=1e-5),
           "K2 energy differs from the plain version beyond rtol 1e-5")
-    return float((energy - energy_p).abs().max())
+    return float((en - en_p).abs().max())
 
 
-def k1_compare(boxes, scores, soft):
+def k1_compare(boxes, scores, soft, cluster=None):
+    """K1 (at a forced cluster size, or the wrapper's choice) against its
+    plain version: keep indices equal, scores to rtol 1e-6 (hard) or 1e-4
+    (soft). Returns the scores' max abs error."""
     kw = dict(max_out=100, iou_threshold=0.3, soft=soft)
-    keep, kept = cuda_nms.batched_nms(boxes, scores, **kw)
+    keep, kept = cuda_nms.batched_nms(boxes, scores, cluster=cluster, **kw)
     keep_p, kept_p = batched_nms_plain(boxes, scores, **kw)
     sync()
     check(torch.equal(keep, keep_p),
-          f"K1 keep indices differ (soft={soft}) from the plain version")
+          f"K1 keep indices differ (soft={soft}, cluster={cluster}) from "
+          "the plain version")
     rtol = 1e-4 if soft else 1e-6
     check(torch.allclose(kept, kept_p, rtol=rtol, atol=0),
-          f"K1 kept scores differ beyond rtol {rtol}")
+          f"K1 kept scores differ beyond rtol {rtol} (cluster={cluster})")
     return float((kept - kept_p).abs().max())
 
 
@@ -500,13 +522,34 @@ def main():
     # 3. kernels vs plain versions on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
     for batch in (BATCH, 128):
-        err = k2_compare(tied_logits(batch, gen))
-        log(f"[3] K2 B={batch}: key bit-exact, energy max abs err {err:.3g}")
-        boxes, scores = random_nms_inputs(batch, 5000, gen)
+        for name, make in (("tied", tied_logits), ("random", random_logits)):
+            err = k2_compare(make(batch, gen))
+            log(f"[3] K2 {name} B={batch}: key bit-exact, energy max abs err "
+                f"{err:.3g}")
+    levels = tied_logits(3, gen, img=128)
+    plan = cuda_reduce.tile_plan([lvl.shape for lvl in levels], NUM_CLASSES)
+    check(plan.rows[-1] == 27 and not list(cuda_reduce.plan_tiles(plan))[-1][4],
+          "D0@128 at batch 3 must end on a ragged tile")
+    err = k2_compare(levels)
+    k2_compare(levels, energy=False)
+    k2_compare(tied_logits(BATCH, gen), energy=False)
+    log(f"[3] K2 D0@128 B=3 (ragged last tile, P7 27 rows): key bit-exact, "
+        f"energy max abs err {err:.3g}; energy=False at B=3 and {BATCH}: "
+        "key bit-exact")
+    for c in (20, 21):   # the kernel's 32-bit (even C) and 16-bit (odd) reads
+        err = k2_compare([
+            (torch.randn((2, 16 >> lvl, 16 >> lvl, 9 * c), generator=gen,
+                         device="cuda") * 2.0 - 3.0).to(torch.bfloat16)
+            for lvl in range(3)], num_classes=c)
+        log(f"[3] K2 C={c}: key bit-exact, energy max abs err {err:.3g}")
+    for batch, n in ((BATCH, 5000), (128, 5000), (2, 1001)):
+        boxes, scores = random_nms_inputs(batch, n, gen)
         for soft in (False, True):
-            err = k1_compare(boxes, scores, soft)
-            log(f"[3] K1 [{batch}, 5000] soft={soft}: keep equal, "
-                f"score max abs err {err:.3g}")
+            errs = [k1_compare(boxes, scores, soft, cluster=c)
+                    for c in cuda_nms.CLUSTER_SIZES]
+            log(f"[3] K1 [{batch}, {n}] soft={soft}: keep equal at clusters "
+                f"{cuda_nms.CLUSTER_SIZES}, score max abs err "
+                f"{max(errs):.3g}")
     anchor_boxes = torch.from_numpy(Anchors.from_config(
         get_efficientdet_config("efficientdet_d0")).boxes).cuda()
     label_inputs = {}
@@ -552,6 +595,9 @@ def main():
     log(f"[4] main path: 3 requests x {BATCH} images, launches {launches}")
     check(launches["K1"] > 0 and launches["K2"] > 0,
           f"a kernel of the main path never launched: {launches}")
+    check(launches["K2"] == len(requests),
+          f"K2 must launch once a request: {launches['K2']} launches for "
+          f"{len(requests)} requests")
     check(tuple(dets.shape) == (BATCH, 100, 6)
           and tuple(ood.shape) == (BATCH, 100), "output shapes")
     check(bool(torch.isfinite(dets).all()) and bool(torch.isfinite(ood).all()),
@@ -664,15 +710,38 @@ def kernel_times(cand, cls, info):
         bound_ms=k2_bound, bound_by=k2_by,
         library_ms=cuda_ms(lambda: [torch.logsumexp(
             lvl.reshape(batch, -1, NUM_CLASSES), dim=-1) for lvl in cls], 20))
-    # the blocks run side by side: the image with the most picks sets the time
+    # the images run side by side: the one with the most picks sets the time
     picks = int(torch.clamp((keep >= 0).sum(dim=1) + 1, max=100).max())
+    dev = torch.cuda.current_device()
     log(f"[5] K1 soft [{batch}, {scores.shape[1]}]: {k1['ms']:.4f} ms, plain "
         f"{k1['plain_ms']:.3f} ms, bound {k1_bound:.5f} ms ({k1_by}); "
+        f"cluster {cuda_nms.device_cluster_size(dev, *scores.shape)}, "
         f"{k1['ms'] * 1e3 / picks:.3f} us a pick over {picks} picks")
+    nms_cluster_times(offset_boxes, scores, picks, nms_kw)
+    if batch == BATCH:
+        # an intermediate batch: the same candidates twice over
+        nms_cluster_times(torch.cat([offset_boxes] * 2),
+                          torch.cat([scores] * 2), picks, nms_kw)
     log(f"[5] K2 B={batch}: {k2['ms']:.4f} ms, plain {k2['plain_ms']:.3f} "
         f"ms, logsumexp {k2['library_ms']:.4f} ms, bound {k2_bound:.4f} ms "
-        f"({k2_by})")
+        f"({k2_by}), {100 * k2_bound / k2['ms']:.1f} % of it reached")
     return {"K1": k1, "K2": k2}
+
+
+def nms_cluster_times(boxes, scores, picks, nms_kw):
+    """K1's time (CUDA events) at the wrapper's cluster size and at each
+    forced one, and how many images of these candidates the card holds at
+    once at each, over ``picks`` picks."""
+    dev = torch.cuda.current_device()
+    batch, n = scores.shape
+    chosen = cuda_nms.device_cluster_size(dev, batch, n)
+    for c in cuda_nms.CLUSTER_SIZES:
+        ms = cuda_ms(lambda: cuda_nms.batched_nms(
+            boxes, scores, cluster=c, **nms_kw), 50)
+        mark = " (the wrapper's choice)" if c == chosen else ""
+        log(f"[5] K1 soft [{batch}, {n}] at cluster {c}{mark}: {ms:.4f} ms, "
+            f"{ms * 1e3 / picks:.3f} us a pick; the card holds "
+            f"{cuda_nms.resident_images(dev, n, c)} images at once")
 
 
 def busy_ms(events):

@@ -10,12 +10,13 @@ such fusion, so in the port this kernel is that pass.
 ``key_energy_reduce_plain`` is the plain version: the torch translation of
 ``_packed_f32_key_reduce`` with the energy of ``_anchor_ood_reduce``. For
 tensors on the CPU the wrapper runs it; for CUDA tensors it launches the
-kernel, once per pyramid level, or raises.
+kernel, once for all pyramid levels, or raises. ``tile_plan`` cuts the
+levels into the tiles the kernel's persistent grid walks.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,18 +24,84 @@ from . import cuda_build
 from .ood import energy_score
 
 SOURCE = "key_reduce.cu"
+MAX_LEVELS = 8
+TILE_ROWS = 32            # rows a tile: one a lane of the warp reducing it
 
 
-def _split(lvl: torch.Tensor, num_classes: int) -> Tuple[int, int]:
+class TilePlan(NamedTuple):
+    """How the kernel walks the levels: level l has ``rows[l]`` anchor rows
+    of ``row_bytes`` (B*H*W*A rows, ``rows_per_image[l]`` an image) written
+    to columns ``col_offsets[l]`` + j of the [B, ``a_total``] outputs, cut
+    into tiles of ``tile_rows``; its tiles are numbered from
+    ``first_tile[l]``, and ``first_tile[-1]`` counts them all."""
+    rows: Tuple[int, ...]
+    rows_per_image: Tuple[int, ...]
+    col_offsets: Tuple[int, ...]
+    first_tile: Tuple[int, ...]
+    tile_rows: int
+    row_bytes: int
+    a_total: int
+
+    @property
+    def total_tiles(self) -> int:
+        return self.first_tile[-1]
+
+
+def tile_plan(shapes: Sequence[Sequence[int]], num_classes: int
+              ) -> TilePlan:
+    """The tile plan of levels of shapes [B, H, W, A*C] (C = num_classes).
+    A tile holds TILE_ROWS rows of 2*C bytes (a multiple of 8 rows, so each
+    starts at a multiple of 16 bytes from its level's base)."""
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"{len(shapes)} levels: the kernel takes 1 to "
+                         f"{MAX_LEVELS}")
+    row_bytes = 2 * num_classes
+    tile_rows = TILE_ROWS
+    batch = shapes[0][0]
+    rows, per_image, offsets, first = [], [], [], [0]
+    a_total = 0
+    for shape in shapes:
+        b, per = _split_shape(tuple(shape), num_classes)
+        if b != batch:
+            raise ValueError(f"levels disagree on the batch: {b} vs {batch}")
+        if b * per >= 2 ** 31:
+            raise ValueError(f"level {tuple(shape)} has {b * per} anchor "
+                             "rows; the kernel indexes fewer than 2^31")
+        rows.append(b * per)
+        per_image.append(per)
+        offsets.append(a_total)
+        first.append(first[-1] + -(-b * per // tile_rows))
+        a_total += per
+    return TilePlan(tuple(rows), tuple(per_image), tuple(offsets),
+                    tuple(first), tile_rows, row_bytes, a_total)
+
+
+def plan_tiles(plan: TilePlan) -> Iterator[Tuple[int, int, int, int, bool]]:
+    """(level, first row, rows, byte offset in the level, bulk-copied) of
+    every tile, as the kernel's ``locate`` computes them: a tile whose size
+    is not a multiple of 16 bytes (a level's ragged last tile) is read in
+    place, not copied."""
+    for t in range(plan.total_tiles):
+        level = max(l for l in range(len(plan.rows))
+                    if plan.first_tile[l] <= t)
+        row0 = (t - plan.first_tile[level]) * plan.tile_rows
+        rows = min(plan.tile_rows, plan.rows[level] - row0)
+        yield (level, row0, rows, row0 * plan.row_bytes,
+               rows * plan.row_bytes % 16 == 0)
+
+
+def _split_shape(shape: Tuple[int, ...], num_classes: int) -> Tuple[int, int]:
     """(batch, anchors per image) of a [B, H, W, A*C] level."""
-    if lvl.dim() != 4 or lvl.shape[3] % num_classes:
-        raise ValueError(f"level {tuple(lvl.shape)} is not [B, H, W, A*C] "
-                         f"with C={num_classes}")
-    b, h, w, ac = lvl.shape
+    if len(shape) != 4 or shape[3] % num_classes:
+        raise ValueError(f"level {shape} is not [B, H, W, A*C] with "
+                         f"C={num_classes}")
+    b, h, w, ac = shape
     return b, h * w * (ac // num_classes)
 
 
 def _check(cls_outputs: List[torch.Tensor], num_classes: int) -> None:
+    """What the kernel takes, held on every device: bf16, at most 256
+    classes, and each level 16-byte aligned (the bulk copies' rule)."""
     if not 0 < num_classes <= 256:
         raise ValueError(f"the packed key holds at most 256 classes, "
                          f"not {num_classes}")
@@ -42,6 +109,9 @@ def _check(cls_outputs: List[torch.Tensor], num_classes: int) -> None:
         if lvl.dtype != torch.bfloat16:
             raise TypeError(f"the packed key reads bf16 logits, not "
                             f"{lvl.dtype}")
+        if lvl.data_ptr() % 16:
+            raise ValueError(f"level {tuple(lvl.shape)} starts at "
+                             f"{lvl.data_ptr():#x}, not 16-byte aligned")
 
 
 def key_energy_reduce_plain(cls_outputs: List[torch.Tensor],
@@ -57,7 +127,7 @@ def key_energy_reduce_plain(cls_outputs: List[torch.Tensor],
     _check(cls_outputs, num_classes)
     keys, energies = [], []
     for lvl in cls_outputs:
-        b, _ = _split(lvl, num_classes)
+        b, _ = _split_shape(tuple(lvl.shape), num_classes)
         r = lvl.reshape(*lvl.shape[:3], -1, num_classes)
         bits = r.view(torch.int16).to(torch.int32) & 0xFFFF
         mono = torch.where(bits >= 0x8000, 0xFFFF - bits, bits | 0x8000)
@@ -75,7 +145,7 @@ def _launcher():
     fn = cuda_build.load(SOURCE).key_energy_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, i, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -83,45 +153,50 @@ def _launcher():
 def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
                       energy: bool
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """As ``key_energy_reduce_plain``; on CUDA one kernel launch per level.
+    """As ``key_energy_reduce_plain``; on CUDA one kernel launch for all
+    levels.
 
     Each level must be the NHWC view of a channels_last head output,
-    contiguous in that view: the kernel reads it in place, and a quiet
-    copy of the logits (over 1 GB at D0@512, batch 128) is refused.
+    contiguous in that view and 16-byte aligned: the kernel copies it in
+    place, and a quiet copy of the logits (over 1 GB at D0@512, batch 128)
+    is refused.
     """
+    _check(cls_outputs, num_classes)
     if all(lvl.device.type == "cpu" for lvl in cls_outputs):
         return key_energy_reduce_plain(cls_outputs, num_classes, energy)
-    _check(cls_outputs, num_classes)
     device = cls_outputs[0].device
-    shapes = [_split(lvl, num_classes) for lvl in cls_outputs]
-    batch = shapes[0][0]
-    for lvl, (b, _) in zip(cls_outputs, shapes):
+    for lvl in cls_outputs:
         if lvl.device != device or device.type != "cuda":
             raise ValueError(f"levels on {lvl.device} and {device}: all must "
                              "be on one CUDA device")
-        if b != batch:
-            raise ValueError(f"levels disagree on the batch: {b} vs {batch}")
         if not lvl.is_contiguous():
             raise ValueError(
                 f"level {tuple(lvl.shape)} is not contiguous as NHWC; pass "
                 "the permute(0, 2, 3, 1) view of a channels_last output")
-    a_total = sum(n for _, n in shapes)
-    key_all = torch.empty((batch, a_total), dtype=torch.float32, device=device)
-    energy_all = (torch.empty((batch, a_total), dtype=torch.float32,
+    plan = tile_plan([tuple(lvl.shape) for lvl in cls_outputs], num_classes)
+    batch = cls_outputs[0].shape[0]
+    key_all = torch.empty((batch, plan.a_total), dtype=torch.float32,
+                          device=device)
+    energy_all = (torch.empty((batch, plan.a_total), dtype=torch.float32,
                               device=device) if energy else None)
-    launch = _launcher()
-    offset = 0
+    if plan.total_tiles == 0:               # no anchors: nothing to launch
+        return key_all, energy_all
+    n = len(cls_outputs)
+    ptrs = (ctypes.c_void_p * n)(*[lvl.data_ptr() for lvl in cls_outputs])
+    rows = (ctypes.c_longlong * n)(*plan.rows)
+    per_image = (ctypes.c_int * n)(*plan.rows_per_image)
+    offsets = (ctypes.c_int * n)(*plan.col_offsets)
+    first = (ctypes.c_int * (n + 1))(*plan.first_tile)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        for lvl, (b, n) in zip(cls_outputs, shapes):
-            err = launch(lvl.data_ptr(), b * n, n, num_classes, a_total,
-                         offset, key_all.data_ptr(),
-                         energy_all.data_ptr() if energy else None, stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"key/energy kernel launch failed: CUDA error {err}")
-            key_energy_reduce.launches += 1
-            offset += n
+        err = _launcher()(ptrs, rows, per_image, offsets, first, n,
+                          num_classes, plan.tile_rows, sms, plan.a_total,
+                          key_all.data_ptr(),
+                          energy_all.data_ptr() if energy else None, stream)
+    if err != 0:
+        raise RuntimeError(f"key/energy kernel launch failed: CUDA error {err}")
+    key_energy_reduce.launches += 1
     return key_all, energy_all
 
 

@@ -76,3 +76,61 @@ def test_rejects_f32_and_too_many_classes():
     with pytest.raises(ValueError):
         cuda_reduce.key_energy_reduce(
             [torch.zeros(1, 2, 2, 300, dtype=torch.bfloat16)], 300, False)
+
+
+def _level_shapes(img, batch):
+    """D0 class-head output shapes [B, H, W, 9*C] of levels P3..P7."""
+    return [(batch, img >> lvl, img >> lvl, 9 * C) for lvl in range(3, 8)]
+
+
+@pytest.mark.parametrize("img", [512, 128])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_tile_plan_covers_every_anchor_once(img, batch):
+    """K2's one launch walks tiles of all five levels: together they cover
+    every anchor row of every level exactly once, each starts 16-byte
+    aligned, only a level's last tile may be ragged (read in place), and
+    the levels' columns add up to A_total."""
+    shapes = _level_shapes(img, batch)
+    plan = cuda_reduce.tile_plan(shapes, C)
+    per_image = [h * w * 9 for _, h, w, _ in shapes]
+    assert plan.a_total == sum(per_image) == sum(plan.rows_per_image)
+    assert list(plan.col_offsets) == list(np.cumsum([0] + per_image[:-1]))
+    assert plan.tile_rows % 8 == 0 and plan.row_bytes == 2 * C
+    seen = [np.zeros(batch * n, dtype=np.int64) for n in per_image]
+    last = {}
+    for level, row0, rows, offset, bulk in cuda_reduce.plan_tiles(plan):
+        assert 0 < rows <= plan.tile_rows
+        assert offset % 16 == 0 and offset == row0 * 2 * C
+        assert bulk == (rows * 2 * C % 16 == 0)
+        if not bulk:
+            assert row0 + rows == plan.rows[level]    # the level's last tile
+        seen[level][row0:row0 + rows] += 1
+        last[level] = max(last.get(level, 0), row0 + rows)
+    assert all((s == 1).all() for s in seen)
+    assert [last[l] for l in range(5)] == [batch * n for n in per_image]
+    if img == 128 and batch == 3:       # P7: 27 rows of 180 B, ragged
+        assert plan.rows[4] == 27 and 27 * 2 * C % 16
+
+
+def test_tile_plan_refusals():
+    with pytest.raises(ValueError, match="batch"):
+        cuda_reduce.tile_plan([(2, 4, 4, 9 * C), (3, 2, 2, 9 * C)], C)
+    with pytest.raises(ValueError, match="levels"):
+        cuda_reduce.tile_plan([(1, 2, 2, 9 * C)] * 9, C)
+    with pytest.raises(ValueError, match="A\\*C"):
+        cuda_reduce.tile_plan([(1, 2, 2, 9 * C + 1)], C)
+
+
+def test_rejects_misaligned_level():
+    """The kernel bulk-copies each level from its base, which must be
+    16-byte aligned; the wrapper refuses a level that is not, on any
+    device, before it dispatches."""
+    n = 2 * 2 * 9 * C
+    flat = torch.zeros(n + 1, dtype=torch.bfloat16)
+    level = flat[1:].view(1, 2, 2, 9 * C)         # 2 bytes past the base
+    assert level.is_contiguous() and level.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_reduce.key_energy_reduce([level], C, True)
+    aligned = flat[:n].view(1, 2, 2, 9 * C)
+    key, energy = cuda_reduce.key_energy_reduce([aligned], C, True)
+    assert key.shape == energy.shape == (1, 36)

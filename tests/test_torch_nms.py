@@ -97,3 +97,40 @@ def test_padding_rows():
     ki, ks = cuda_nms.batched_nms(boxes, scores, max_out=4, iou_threshold=0.5)
     np.testing.assert_array_equal(ki.numpy()[0], [0, -1, -1, -1])
     np.testing.assert_allclose(ks.numpy()[0], [0.9, 0, 0, 0])
+
+
+@pytest.mark.parametrize("batch, sms, cluster", [
+    (16, 132, 8), (128, 132, 1), (32, 132, 4), (64, 132, 2), (200, 132, 1)])
+def test_cluster_size_fills_the_sms(batch, sms, cluster):
+    """K1 spreads an image over a cluster of C CTAs: the largest portable
+    C with B * C <= SMs."""
+    assert cuda_nms.cluster_size(batch, sms) == cluster
+
+
+def test_cluster_size_keeps_every_image_resident():
+    """A cluster size whose clusters do not all fit on the card at once
+    (a second wave) is passed over for the next smaller one."""
+    resident = {1: 132, 2: 66, 4: 30, 8: 30}.get
+    assert cuda_nms.cluster_size(16, 132, resident) == 8
+    assert cuda_nms.cluster_size(32, 132, resident) == 2
+    assert cuda_nms.cluster_size(30, 132, resident) == 4
+    assert cuda_nms.cluster_size(64, 132, resident) == 2
+    assert cuda_nms.cluster_size(128, 132, resident) == 1
+    assert cuda_nms.cluster_size(16, 132, lambda c: 0) == 1
+
+
+@pytest.mark.parametrize("cluster, accepted", [
+    (0, False), (3, False), (6, False), (16, False), (32, False),
+    (1, True), (2, True), (4, True), (8, True)])
+def test_forced_cluster_refusals(cluster, accepted):
+    """A forced cluster size must be a power of two up to the portable 8
+    (the grid is B * C blocks, so it divides the grid); any other is
+    refused before the device dispatch, and those are accepted."""
+    boxes, scores = _boxes(np.random.default_rng(0), 1, 10)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    if accepted:
+        ki, ks = cuda_nms.batched_nms(b, s, max_out=4, cluster=cluster)
+        assert ki.shape == ks.shape == (1, 4)
+    else:
+        with pytest.raises(ValueError, match="cluster size"):
+            cuda_nms.batched_nms(b, s, cluster=cluster)
