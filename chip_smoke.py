@@ -10,7 +10,7 @@ classes, bf16 compute), random weights from a seed:
     survivor energy;
   - train (momentum SGD, clip 10, EMA, freeze_bn='backbone', alpha-only
     focal + huber loss): padded ground truth [B, 100] -> K3 (anchor match)
-    -> thresholds + force-match -> K4 (target encode) -> forward with
+    -> K4 (thresholds, force-match, class and box targets) -> forward with
     train-mode BatchNorm -> loss -> backward -> clipped SGD + EMA.
 
 Phases, each synchronised so that a fault shows where it happened:
@@ -24,7 +24,12 @@ Phases, each synchronised so that a fault shows where it happened:
      an all-zero image, and at [2, 1001], each at every cluster size 1,
      2, 4, 8; K3 / K4 at the train path's shapes (49,104 anchors, 100
      rows), batch 32 and 128, with identical rows, a row that overlaps no
-     anchor, an all-padding image and a 0.3 / 0.5 ignore band;
+     anchor, an all-padding image and a 0.3 / 0.5 ignore band; on D0@128's
+     3069 anchors at batch 3 (a ragged split over K3's cluster); with
+     every row valid and with only the last row valid; with a row whose
+     maximum is tied at two anchors in two CTAs' shares; and with an IoU
+     exactly at a threshold (the tie's IoU, and 1.0 for a box equal to an
+     anchor);
   4. the predict path answers 3 requests of 16 canvases; K1 and K2 must
      have launched, K2 once a request, the outputs must be finite, of the
      right shapes, with detections, and the plain path on the same batch
@@ -41,11 +46,14 @@ Phases, each synchronised so that a fault shows where it happened:
      K4 must have launched, the metrics must be finite with positives, the
      parameters, the EMA and the fpn / head BatchNorm statistics must have
      moved and the frozen backbone's must not, and the kernel labels must
-     equal the plain labels on the same batch;
+     equal the plain labels on the same batch; K3 and K4 must launch once
+     a step each;
   7. times of the train path: K3 / K4 beside their bounds and plain
      versions at batch 32 and 128; train steps a second over a window at
      batch 32 and 128 with the peak device memory; and where a step's
-     time goes (labeling, forward, loss, backward, optimizer + EMA).
+     time goes (labeling, forward, loss, backward, optimizer + EMA); the
+     labeling stage must issue LABEL_OPS device operations a step, K3's
+     cluster launch among them, no more than LABEL_MAX_OPS.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
@@ -73,6 +81,7 @@ from ood_object_detection_tpu_torch.ops import (cuda_build, cuda_labeler,
                                                 cuda_nms, cuda_reduce)
 from ood_object_detection_tpu_torch.ops import post_process as pp
 from ood_object_detection_tpu_torch.ops.anchors import Anchors
+from ood_object_detection_tpu_torch.ops.boxes import pairwise_iou_yxyx
 from ood_object_detection_tpu_torch.ops.nms import batched_nms_plain
 from ood_object_detection_tpu_torch.ops.target_assigner import (
     batch_label_anchors)
@@ -95,10 +104,23 @@ IMG = 512
 WINDOW_S = 2.5       # end-to-end timing window at each batch
 PROFILE_REPS = 10    # calls in each profiler window
 TRAIN_PROFILE_REPS = 3
-# f32 operations of one IoU pair in K3: 2 min, 2 max, 2 sub, 2 clamp, the
-# intersection product, 2 adds of the union, the zero test, the division
-# (counted as one), the running-max compare and the order-preserving key
-MATCH_OPS_PER_PAIR = 17
+# calls in the labeling stage's profiler window: a window of 3 calls (under
+# a millisecond) kept a quarter of the stage's device operations, or none
+LABEL_PROFILE_REPS = 30
+# f32 operations of K3 for each valid (row, anchor) pair: 2 min, 2 max, 2
+# sub and 2 clamp of the two overlaps, their product and its zero test;
+# and for each pair whose boxes meet, MATCH_OPS_PER_MEET more: the add and
+# the subtract of the union, the division (counted as one), the running-max
+# compare, the order-preserving key (2) and its compare. The flat
+# yardstick charges every valid pair with the sum, as if every pair met.
+MATCH_OPS_PER_PAIR = 10
+MATCH_OPS_PER_MEET = 7
+# device operations the labeling stage issues a step: the valid mask, K3,
+# the zeroing of K4's positive counts and K4; and the most it may issue
+LABEL_OPS = 4
+LABEL_MAX_OPS = 6
+# CUDA runtime calls that put an operation on the card (profiler names)
+RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
 REPO_KERNELS = {
     "K1": ("ood_object_detection_tpu_torch/csrc/nms.cu",
            "ood_object_detection_tpu/ops/pallas_nms.py:77"),
@@ -248,13 +270,13 @@ def reduce_bound_ms(levels):
         "operations"
 
 
-def ground_truth(batch, gen, cases=False):
+def ground_truth(batch, gen, cases=False, img=IMG, n=16):
     """Padded ground truth as the JAX package's train_bench makes it
-    (bench.py:183-194): 16 boxes of 16-64 px an image, classes 1-89, padded
-    to MAX_ROWS rows of class -1. With ``cases``: image 0 has two identical
-    rows and a row that overlaps no anchor, image 1 is all padding."""
-    n = 16
-    yx = torch.rand((batch, n, 2), generator=gen, device="cuda") * (IMG - 64)
+    (bench.py:183-194): n = 16 boxes of 16-64 px an image, classes 1-89,
+    padded to MAX_ROWS rows of class -1. With ``cases``: image 0 has two
+    identical rows and a row that overlaps no anchor, image 1 is all
+    padding."""
+    yx = torch.rand((batch, n, 2), generator=gen, device="cuda") * (img - 64)
     hw = torch.rand((batch, n, 2), generator=gen, device="cuda") * 48 + 16
     boxes = torch.zeros((batch, MAX_ROWS, 4), device="cuda")
     boxes[:, :n] = torch.cat([yx, yx + hw], dim=-1)
@@ -268,11 +290,11 @@ def ground_truth(batch, gen, cases=False):
     return boxes, cls
 
 
-def label_compare(anchor_boxes, boxes, cls, unmatched):
-    """K3, the match codes and K4 against their plain versions on the same
-    inputs: all bit for bit but the box targets (rtol 1e-5, atol 1e-6).
-    Returns (K3's max abs IoU error, K4's max abs box error, the codes,
-    the best anchor of each row)."""
+def label_compare(anchor_boxes, boxes, cls, unmatched, matched=0.5):
+    """K3 and K4 against their plain versions on the same inputs (K4's on
+    K3's outputs): all bit for bit but the box targets (rtol 1e-5, atol
+    1e-6). Returns (K3's max abs IoU error, K4's max abs box error, the
+    codes, K3's outputs)."""
     valid = cls > -1
     k3 = cuda_labeler.batch_match(anchor_boxes, boxes, valid)
     p3 = cuda_labeler.batch_match_plain(anchor_boxes, boxes, valid)
@@ -280,41 +302,149 @@ def label_compare(anchor_boxes, boxes, cls, unmatched):
     for name, a, b in zip(("IoU values", "rows", "best anchors"), k3, p3):
         check(torch.equal(a, b), f"K3 {name} differ from the plain version")
     err_k3 = float((k3[0] - p3[0]).abs().max())
-    codes = cuda_labeler.label_match(*k3, valid, 0.5, unmatched)
-    codes_p = cuda_labeler.label_match(*p3, valid, 0.5, unmatched)
-    check(torch.equal(codes, codes_p), "match codes differ")
-    cls_t, box_t = cuda_labeler.batch_targets(anchor_boxes, boxes, cls, codes)
-    cls_p, box_p = cuda_labeler.batch_targets_plain(anchor_boxes, boxes, cls,
-                                                    codes)
+    args = (anchor_boxes, boxes, cls, valid, *k3, matched, unmatched)
+    codes, cls_t, box_t, pos = cuda_labeler.batch_codes_targets(*args)
+    codes_p, cls_p, box_p, pos_p = cuda_labeler.batch_codes_targets_plain(
+        *args)
     sync()
+    check(torch.equal(codes, codes_p), "K4 match codes differ")
     check(torch.equal(cls_t, cls_p), "K4 class targets differ")
+    check(torch.equal(pos, pos_p), "K4 positive counts differ")
     check(torch.allclose(box_t, box_p, rtol=1e-5, atol=1e-6),
           "K4 box targets differ beyond rtol 1e-5 / atol 1e-6")
-    return err_k3, float((box_t - box_p).abs().max()), codes, k3[2]
+    return err_k3, float((box_t - box_p).abs().max()), codes, k3
 
 
-def match_bound_ms(valid, num_anchors):
-    """Least time for K3: MATCH_OPS_PER_PAIR f32 operations for each valid
-    (row, anchor) pair (a padded row costs the kernel no IoU), against its
-    bytes (anchors and rows in; per-anchor value and row, per-row anchor
-    out)."""
+def cross_cta_tie(anchor_boxes):
+    """A ground-truth box whose IoU is one f32 value at two anchors of
+    equal size (integer corners, one grid row) that lie in the shares of
+    two CTAs of K3's cluster, and is the row's maximum there and nowhere
+    else: (box [4], lower anchor, higher anchor, the IoU). Found on the
+    host and checked with the plain version's IoU."""
+    boxes = anchor_boxes.cpu()
+    exact = (boxes == boxes.round()).all(dim=1)
+    width = boxes[:, 3] - boxes[:, 1]
+    for lo, hi in cuda_labeler.match_shares(boxes.shape[0])[1:]:
+        for j in range(lo, min(hi, lo + 64)):
+            y1, x1, y2, x2 = boxes[j].tolist()
+            left = (exact[:lo] & (boxes[:lo, 0] == y1) & (boxes[:lo, 2] == y2)
+                    & (width[:lo] == x2 - x1) & (boxes[:lo, 1] < x1)
+                    & (boxes[:lo, 3] > x1))
+            if not exact[j] or not bool(left.any()):
+                continue
+            i = int(left.nonzero().max())
+            gt = torch.tensor([y1, float(boxes[i, 1]), y2, x2])
+            iou = pairwise_iou_yxyx(gt[None], boxes)[0]
+            top = float(iou.max())
+            if float(iou[i]) == float(iou[j]) == top and \
+                    int((iou == top).sum()) == 2:
+                return gt.to(anchor_boxes.device), i, j, top
+    raise AssertionError("no anchor pair for a tie across K3's CTAs")
+
+
+def label_hazards(anchor_boxes, gen):
+    """Phase 3's labeler cases beyond the train path's batches, each K3 /
+    K4 against the plain versions (label_compare): D0@128 at batch 3, a
+    ragged split of 3069 anchors over K3's cluster; every row valid; only
+    the last row valid; a row tied at two anchors in two CTAs' shares; an
+    IoU exactly at the matched threshold."""
+    anchors128 = torch.from_numpy(Anchors.from_config(
+        get_efficientdet_config("efficientdet_d0"), img_size=128).boxes
+    ).cuda()
+    shares = cuda_labeler.match_shares(anchors128.shape[0])
+    boxes, cls = ground_truth(3, gen, cases=True, img=128)
+    for unmatched in (0.5, 0.3):
+        _, _, codes, (_, _, best) = label_compare(anchors128, boxes, cls,
+                                                  unmatched)
+        check(int(best[0, 0]) == int(best[0, 1]) and int(best[0, 2]) == 0
+              and bool((codes[1] == -1).all()),
+              "D0@128: identical rows, the far row or the padded image")
+    log(f"[3] K3 / K4 D0@128 [3, {MAX_ROWS}] x {anchors128.shape[0]} anchors "
+        f"(shares {shares[0][1] - shares[0][0]} .. "
+        f"{shares[-1][1] - shares[-1][0]}): equal")
+
+    boxes, cls = ground_truth(8, gen, n=MAX_ROWS)
+    label_compare(anchor_boxes, boxes, cls, 0.3)
+    cls[:, :-1] = -1
+    _, _, codes, (vals, rows, best) = label_compare(anchor_boxes, boxes, cls,
+                                                    0.3)
+    check(bool((rows == MAX_ROWS - 1).all()) and bool((best[:, :-1] == 0)
+                                                      .all()),
+          "only the last row valid: every anchor's row, padded rows' anchor")
+    log(f"[3] K3 / K4 every row valid and only the last row valid [8, "
+        f"{MAX_ROWS}]: equal")
+
+    gt, i, j, tie = cross_cta_tie(anchor_boxes)
+    log(f"[3] tie across K3's CTAs: anchors {i} and {j} both reach the row "
+        f"maximum IoU {tie!r} with box {gt.tolist()} (plain IoU)")
+    boxes, cls = ground_truth(2, gen)
+    boxes[0], cls[0] = 0.0, -1
+    boxes[0, 0], cls[0, 0] = gt, 7
+    k = anchor_boxes.shape[0] // 2 + 5            # a box equal to an anchor
+    boxes[1, 0] = anchor_boxes[k]
+    above = float(torch.tensor(tie).nextafter(torch.tensor(2.0)))
+    for matched, code_j in ((tie, 0), (above, -1)):
+        _, _, codes, (vals, _, best) = label_compare(anchor_boxes, boxes, cls,
+                                                     matched, matched)
+        check(int(best[0, 0]) == i and float(vals[0, j]) == tie
+              and int(codes[0, i]) == 0 and int(codes[0, j]) == code_j,
+              f"tie across CTAs at threshold {matched!r}: the lower anchor "
+              "must be the row's, the higher one matched only at the IoU")
+    _, _, codes, (vals, _, best) = label_compare(anchor_boxes, boxes, cls,
+                                                 1.0, 1.0)
+    check(float(vals[1, k]) == 1.0 and int(codes[1, k]) == 0
+          and int(best[1, 0]) == k, "IoU 1.0 at threshold 1.0")
+    log("[3] K3 / K4 tie across CTAs and IoU at the threshold (the tie's "
+        "IoU, the next f32 above it, 1.0): equal")
+
+
+def meeting_pairs(anchor_boxes, gt_boxes, valid):
+    """How many valid (row, anchor) pairs have boxes that meet (a nonzero
+    intersection, as K3 tests it), one image at a time."""
+    total = 0
+    for boxes, ok in zip(gt_boxes, valid):
+        g = boxes[ok][:, None]
+        ih = torch.clamp(torch.minimum(g[..., 2], anchor_boxes[:, 2])
+                         - torch.maximum(g[..., 0], anchor_boxes[:, 0]),
+                         min=0.0)
+        iw = torch.clamp(torch.minimum(g[..., 3], anchor_boxes[:, 3])
+                         - torch.maximum(g[..., 1], anchor_boxes[:, 1]),
+                         min=0.0)
+        total += int((ih * iw != 0).sum())
+    return total
+
+
+def match_bound_ms(anchor_boxes, gt_boxes, valid):
+    """Least time for K3 on these inputs: MATCH_OPS_PER_PAIR f32 operations
+    for each valid (row, anchor) pair (a padded row costs the kernel no
+    IoU) and MATCH_OPS_PER_MEET more for each such pair whose boxes meet,
+    against its bytes (anchors and rows in; per-anchor value and row,
+    per-row anchor out). Also the flat yardstick, MATCH_OPS_PER_PAIR +
+    MATCH_OPS_PER_MEET for every valid pair, in ms."""
     b, m = valid.shape
-    pairs = int(valid.sum()) * num_anchors
-    nbytes = num_anchors * 16 + b * m * 17 + b * num_anchors * 8 + b * m * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = pairs * MATCH_OPS_PER_PAIR / F32_OPS_PER_S
+    a = anchor_boxes.shape[0]
+    pairs = int(valid.sum()) * a
+    ops = pairs * MATCH_OPS_PER_PAIR + meeting_pairs(
+        anchor_boxes, gt_boxes, valid) * MATCH_OPS_PER_MEET
+    nbytes = a * 16 + b * m * 17 + b * a * 8 + b * m * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    every = pairs * (MATCH_OPS_PER_PAIR + MATCH_OPS_PER_MEET) / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
-        "operations"
+        "operations", every * 1e3
 
 
 def targets_bound_ms(codes, m):
-    """Least time for K4: each code read once, each class and box target
-    written once, the anchors and rows read once, against about 20
-    operations a positive (the encode)."""
+    """Least time for K4 (thresholds, force-match and targets from K3's
+    outputs): each anchor's IoU and row read once (8 B), its code, class
+    and box written once (24 B), the anchors read once and the rows (box,
+    class, valid, best anchor: 25 B) once; against about 4 operations an
+    anchor (two thresholds, the claim, the count) and 20 a positive (the
+    encode). A codes-in K4 would move only the codes in and the targets
+    out."""
     b, a = codes.shape
-    nbytes = b * a * (4 + 4 + 16) + a * 16 + b * m * 20
+    nbytes = b * a * (8 + 24) + a * 16 + b * m * 25
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int((codes >= 0).sum()) * 20 / F32_OPS_PER_S
+    t_ops = (b * a * 4 + int((codes >= 0).sum()) * 20) / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -326,8 +456,10 @@ def label_kernel_times(anchor_boxes, boxes, cls):
     valid = cls > -1
     batch = cls.shape[0]
     codes = batch_label_anchors(anchor_boxes, boxes, cls).matches
-    k3_bound, k3_by = match_bound_ms(valid, anchor_boxes.shape[0])
+    k3_bound, k3_by, k3_every = match_bound_ms(anchor_boxes, boxes, valid)
     k4_bound, k4_by = targets_bound_ms(codes, cls.shape[1])
+    k3_out = cuda_labeler.batch_match(anchor_boxes, boxes, valid)
+    k4_args = (anchor_boxes, boxes, cls, valid, *k3_out, 0.5, 0.5)
     k3 = dict(
         ms=cuda_ms(lambda: cuda_labeler.batch_match(anchor_boxes, boxes,
                                                     valid), 50),
@@ -335,15 +467,20 @@ def label_kernel_times(anchor_boxes, boxes, cls):
             anchor_boxes, boxes, valid), 3),
         bound_ms=k3_bound, bound_by=k3_by, library_ms=None)
     k4 = dict(
-        ms=cuda_ms(lambda: cuda_labeler.batch_targets(anchor_boxes, boxes,
-                                                      cls, codes), 50),
-        plain_ms=cuda_ms(lambda: cuda_labeler.batch_targets_plain(
-            anchor_boxes, boxes, cls, codes), 10),
+        ms=cuda_ms(lambda: cuda_labeler.batch_codes_targets(*k4_args), 50),
+        plain_ms=cuda_ms(lambda: cuda_labeler.batch_codes_targets_plain(
+            *k4_args), 10),
         bound_ms=k4_bound, bound_by=k4_by, library_ms=None)
     for name, t in (("K3", k3), ("K4", k4)):
         log(f"[7] {name} B={batch}: {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']})")
+            f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f} % of "
+            "it reached")
+    log(f"[7] K3 B={batch}: {meeting_pairs(anchor_boxes, boxes, valid)} of "
+        f"{int(valid.sum()) * anchor_boxes.shape[0]} valid pairs meet; bound "
+        f"by the flat yardstick ({MATCH_OPS_PER_PAIR + MATCH_OPS_PER_MEET} "
+        f"operations every valid pair) {k3_every:.5f} ms, "
+        f"{100 * k3_every / k3['ms']:.1f} % of it reached")
     return {"K3": k3, "K4": k4}
 
 
@@ -378,11 +515,14 @@ def train_path(gen):
         metrics.append(m)
     sync()
     launches = {"K3": cuda_labeler.batch_match.launches,
-                "K4": cuda_labeler.batch_targets.launches}
+                "K4": cuda_labeler.batch_codes_targets.launches}
     log(f"[6] train path: 3 steps x {TRAIN_BATCH} images, launches "
         f"{launches}")
     check(launches["K3"] > 0 and launches["K4"] > 0,
           f"a kernel of the train path never launched: {launches}")
+    check(launches["K3"] == launches["K4"] == len(batches),
+          f"K3 and K4 must launch once a step: {launches} for "
+          f"{len(batches)} steps")
     for i, m in enumerate(metrics):
         values = {k: float(v) for k, v in m.items()}
         log(f"[6] step {i + 1}: {values}")
@@ -481,9 +621,31 @@ def train_throughput(bench, state, step, tx, tcfg, batch_size, gen):
               "optimizer+EMA": lambda: apply_gradients(state, tx, tcfg)}
     top = collections.Counter()
     for name, fn in stages.items():
-        numbers, device = profile_window(fn, TRAIN_PROFILE_REPS)
+        reps = LABEL_PROFILE_REPS if name == "labeling" else \
+            TRAIN_PROFILE_REPS
+        numbers, device, issued = profile_window(fn, reps)
         log(f"[7] profile train B={batch_size} {name}: " + ", ".join(
             f"{k} {v}" for k, v in numbers.items()))
+        if name == "labeling":
+            # counted from the host's CUDA runtime calls: the profiler has
+            # dropped part of a short window's device events
+            log(f"[7] labeling B={batch_size}: runtime calls a step "
+                + ", ".join(f"{k} {v / reps}" for k, v in issued.items()))
+            cluster = sum(v for k, v in issued.items()
+                          if k.startswith("cudaLaunchKernelEx"))
+            check(numbers["issued"] == LABEL_OPS <= LABEL_MAX_OPS
+                  and cluster == reps,
+                  f"the labeling stage issued {numbers['issued']} device "
+                  f"operations a step ({dict(issued)} over {reps} steps), "
+                  f"not the mask, K3's cluster launch, a memset and K4")
+            kernels = collections.defaultdict(list)
+            for e in device:
+                kernels[e.name[:60]].append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+            for kname, ms in kernels.items():
+                log(f"[7] labeling B={batch_size} device op: "
+                    f"{len(ms) / reps} a step, "
+                    f"{sum(ms) / len(ms):.4f} ms each, {kname}")
         if name == "step":
             for e in device:
                 top[e.name[:80]] += (e.time_range.end - e.time_range.start
@@ -557,8 +719,8 @@ def main():
         boxes, cls = ground_truth(batch, gen, cases=True)
         label_inputs[batch] = (boxes, cls)
         for unmatched in (0.5, 0.3):
-            err_k3, err, codes, best = label_compare(anchor_boxes, boxes,
-                                                     cls, unmatched)
+            err_k3, err, codes, (_, _, best) = label_compare(
+                anchor_boxes, boxes, cls, unmatched)
             check(bool((codes[1] == -1).all()), "all-padding image matched")
             check(int(best[0, 0]) == int(best[0, 1])
                   and int(codes[0, best[0, 0]]) == 0,
@@ -573,6 +735,7 @@ def main():
                 f", {int((codes == -2).sum())} ignored")
             if batch == TRAIN_BATCH:
                 err_match = err_k3
+    label_hazards(anchor_boxes, gen)
     sync()
 
     # 4. main path: 3 requests of 16 canvases
@@ -665,7 +828,8 @@ def main():
              route="cuda", source=REPO_KERNELS["K3"][0],
              replaces=REPO_KERNELS["K3"][1], launches=launches["K3"],
              max_abs_err=err_match, **t["K3"]),
-        dict(name="K4 target encode (class and box targets)", route="cuda",
+        dict(name="K4 match codes + targets (thresholds, force-match, "
+             "class and box targets)", route="cuda",
              source=REPO_KERNELS["K4"][0], replaces=REPO_KERNELS["K4"][1],
              launches=launches["K4"], max_abs_err=err_label, **t["K4"]),
     ]
@@ -680,7 +844,7 @@ def main():
 def reset_launches():
     """Every kernel's launch count to 0 (before a path is driven)."""
     for fn in (cuda_nms.batched_nms, cuda_reduce.key_energy_reduce,
-               cuda_labeler.batch_match, cuda_labeler.batch_targets):
+               cuda_labeler.batch_match, cuda_labeler.batch_codes_targets):
         fn.launches = 0
 
 
@@ -759,8 +923,11 @@ def profile_window(fn, reps=PROFILE_REPS):
     """Where one call of fn spends its time: the host clock over ``reps``
     calls with the profiler off (wall), then the union of the card's
     kernel, copy and set intervals over ``reps`` calls in a torch.profiler
-    window (busy), the card's idle share of the wall time, and the device
-    operations of a call. Returns (those numbers, the device events)."""
+    window (busy), the card's idle share of the wall time, the device
+    operations of a call that the profiler kept (ops) and those the host
+    issued (issued: its CUDA runtime calls that put one on the card).
+    Returns (those numbers, the device events, a count of the runtime calls
+    by name)."""
     fn()
     sync()
     t0 = time.perf_counter()
@@ -773,11 +940,16 @@ def profile_window(fn, reps=PROFILE_REPS):
         for _ in range(reps):
             fn()
         sync()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     check(len(device) > 0, "the profiler recorded no device activity")
+    issued = collections.Counter(
+        e.name for e in events
+        if e.device_type == DeviceType.CPU and e.name.startswith(RUNTIME_OPS))
     busy = busy_ms(device) / reps
     return dict(wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
-                ops=len(device) / reps), device
+                ops=len(device) / reps,
+                issued=sum(issued.values()) / reps), device, issued
 
 
 def throughput(bench, batch, gen):
@@ -824,7 +996,7 @@ def throughput(bench, batch, gen):
     }
     top = collections.Counter()
     for name, fn in stages.items():
-        numbers, device = profile_window(fn)
+        numbers, device, _ = profile_window(fn)
         log(f"[5] profile B={batch} {name}: " + ", ".join(
             f"{k} {v}" for k, v in numbers.items()))
         if name == "request":

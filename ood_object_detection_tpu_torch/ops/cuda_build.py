@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 
@@ -98,3 +100,11 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(source)[0]))
             _loaded[source] = lib
         return lib
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, which a kernel's
+    launch function takes: what ``torch.cuda.current_stream(device)
+    .cuda_stream`` gives, without building the Stream object (a launch's
+    host cost is of the order of the labeler kernels' time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

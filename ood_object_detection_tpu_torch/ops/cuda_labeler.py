@@ -1,23 +1,24 @@
-"""K3 (anchor match) and K4 (target encode) of the train-step labeler, as
-hand-written CUDA kernels (csrc/label_match.cu, csrc/label_targets.cu),
-with the plain torch step between them.
+"""K3 (anchor match) and K4 (match codes and targets) of the train-step
+labeler, as hand-written CUDA kernels (csrc/label_match.cu,
+csrc/label_targets.cu): two launches label a batch.
 
 Replaces the Pallas TPU kernels of ``ood_object_detection_tpu.ops.
 pallas_labeler``: ``pallas_batch_match`` (:146) and ``pallas_batch_targets``
-(:201); ``label_match`` is the port of the thresholds and force-match of
-``pallas_label_match`` (:249-280), plain torch.
+(:201), with the XLA step between them, the thresholds and force-match of
+``pallas_label_match`` (:249-280), inside K4; ``label_match`` is that
+step's plain torch port.
 
-``batch_match_plain`` and ``batch_targets_plain`` are the kernels' plain
-versions. For tensors on the CPU the wrappers run them; for CUDA tensors
-they launch the kernel or raise. Ties are resolved explicitly, as in the
-JAX package: per anchor the lowest row with the max IoU, per row the
-lowest anchor with the row's max, and force-match gives a contested
-anchor to the lowest row.
+``batch_match_plain`` and ``batch_codes_targets_plain`` (``label_match``,
+then ``batch_targets_plain``) are the kernels' plain versions. For tensors
+on the CPU the wrappers run them; for CUDA tensors they launch the kernel
+or raise. Ties are resolved explicitly, as in the JAX package: per anchor
+the lowest row with the max IoU, per row the lowest anchor with the row's
+max, and force-match gives a contested anchor to the lowest row.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -27,8 +28,13 @@ from .boxes import pairwise_iou_yxyx
 
 MATCH_SOURCE = "label_match.cu"
 TARGETS_SOURCE = "label_targets.cu"
-# rows a match block stages in its shared memory (32 B a row, 48 KB)
+# K3 keeps each of an image's rows in a CTA's shared memory (box, area, row
+# index, u64 key: 32 B a row, 48 KB at this limit, above the 48 KB a launch
+# takes without opting in); K4 keeps box, class and best anchor (24 B a
+# row, 36 KB) beside 8 KB of claims
 MAX_ROWS = 1536
+# CTAs of K3's thread block cluster an image (the portable cluster size)
+MATCH_CLUSTER = 8
 
 
 def _first_index_of_max(x: torch.Tensor, dim: int
@@ -109,23 +115,50 @@ def batch_targets_plain(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     return cls_targets.to(torch.int32), box_targets.to(torch.float32)
 
 
+def batch_codes_targets_plain(
+        anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+        gt_classes: torch.Tensor, valid: torch.Tensor,
+        matched_vals: torch.Tensor, matches: torch.Tensor,
+        best_anchor: torch.Tensor, matched_threshold: float,
+        unmatched_threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's outputs -> (match codes [B, A] i32, class targets [B, A] i32,
+    box targets [B, A, 4] f32, positives of each image [B] f32):
+    ``label_match``, then ``batch_targets_plain``."""
+    codes = label_match(matched_vals, matches, best_anchor, valid,
+                        matched_threshold, unmatched_threshold)
+    cls_targets, box_targets = batch_targets_plain(anchor_boxes, gt_boxes,
+                                                   gt_classes, codes)
+    return (codes, cls_targets, box_targets,
+            (codes >= 0).to(torch.float32).sum(dim=1))
+
+
+# dtype and shape ("m": [B, M], "a": [B, A]) of each tensor a kernel takes
+# beside the anchors and the ground-truth boxes
+_TAKES = {"valid": (torch.bool, "m"), "gt_classes": (torch.int32, "m"),
+          "best_anchor": (torch.int32, "m"),
+          "matched_vals": (torch.float32, "a"), "matches": (torch.int32, "a")}
+
+
 def _check(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
            **others: torch.Tensor) -> Tuple[int, int, int]:
     """Device, dtype, shape and contiguity checks shared by both kernels;
     returns (B, M, A)."""
-    tensors = dict(anchor_boxes=anchor_boxes, gt_boxes=gt_boxes, **others)
     device = anchor_boxes.device
-    for name, t in tensors.items():
-        if t.device != device or device.type != "cuda":
+    if device.type != "cuda":
+        raise ValueError(f"anchors on {device}: the kernels take CUDA "
+                         "tensors")
+    for name, t in (("anchor_boxes", anchor_boxes), ("gt_boxes", gt_boxes),
+                    *others.items()):
+        if t.device != device:
             raise ValueError(f"{name} on {t.device}, anchors on {device}: "
                              "all must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("anchor_boxes", "gt_boxes"):
-        if tensors[name].dtype != torch.float32:
-            raise TypeError(f"{name} is {tensors[name].dtype}; the kernel "
-                            "takes float32")
-        if tensors[name].data_ptr() % 16:
+    for name, t in (("anchor_boxes", anchor_boxes), ("gt_boxes", gt_boxes)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+        if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernels "
                              "read a box as one float4)")
     if anchor_boxes.dim() != 2 or anchor_boxes.shape[1] != 4 or \
@@ -138,14 +171,34 @@ def _check(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     if min(b, m, a) < 1 or m > MAX_ROWS or a >= 2 ** 31 // max(b, 1):
         raise ValueError(f"B={b}, M={m}, A={a}: the kernels take 1 <= M <= "
                          f"{MAX_ROWS} and B * A < 2^31")
+    for name, t in others.items():
+        dtype, cols = _TAKES[name]
+        shape = (b, m if cols == "m" else a)
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} must be "
+                             f"{dtype} {list(shape)}")
     return b, m, a
+
+
+def match_share(num_anchors: int) -> int:
+    """Anchors of each CTA of K3's cluster: CTA r takes [r * share,
+    (r + 1) * share) of the image's anchors, the last one what is left."""
+    return -(-num_anchors // MATCH_CLUSTER)
+
+
+def match_shares(num_anchors: int) -> List[Tuple[int, int]]:
+    """The [lo, hi) anchor range of each CTA of K3's cluster, in rank
+    order (an empty range where the anchors run out)."""
+    share = match_share(num_anchors)
+    return [(min(num_anchors, r * share), min(num_anchors, (r + 1) * share))
+            for r in range(MATCH_CLUSTER)]
 
 
 def _match_launcher():
     fn = cuda_build.load(MATCH_SOURCE).match_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, i, p, p, p, p, p]
+        fn.argtypes = [p, i, i, p, p, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -153,23 +206,21 @@ def _match_launcher():
 def batch_match(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
                 valid: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3: as ``batch_match_plain``; one launch for the batch on CUDA."""
+    """K3: as ``batch_match_plain``; on CUDA one launch for the batch, a
+    cluster of MATCH_CLUSTER CTAs an image, nothing allocated but the
+    outputs."""
     if all(t.device.type == "cpu" for t in (anchor_boxes, gt_boxes, valid)):
         return batch_match_plain(anchor_boxes, gt_boxes, valid)
     b, m, a = _check(anchor_boxes, gt_boxes, valid=valid)
-    if valid.dtype != torch.bool or tuple(valid.shape) != (b, m):
-        raise ValueError(f"valid {valid.dtype} {tuple(valid.shape)} must be "
-                         f"bool [{b}, {m}]")
     dev = anchor_boxes.device
     vals = torch.empty((b, a), dtype=torch.float32, device=dev)
     rows = torch.empty((b, a), dtype=torch.int32, device=dev)
     best = torch.empty((b, m), dtype=torch.int32, device=dev)
-    row_keys = torch.zeros((b, m), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = _match_launcher()(
-            anchor_boxes.data_ptr(), a, gt_boxes.data_ptr(), valid.data_ptr(),
-            b, m, vals.data_ptr(), rows.data_ptr(), row_keys.data_ptr(),
-            best.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            anchor_boxes.data_ptr(), a, match_share(a), gt_boxes.data_ptr(),
+            valid.data_ptr(), b, m, vals.data_ptr(), rows.data_ptr(),
+            best.data_ptr(), cuda_build.stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"label match kernel launch failed: CUDA error {err}")
     batch_match.launches += 1
@@ -180,43 +231,54 @@ batch_match.launches = 0
 
 
 def _targets_launcher():
-    fn = cuda_build.load(TARGETS_SOURCE).targets_launch
+    fn = cuda_build.load(TARGETS_SOURCE).codes_targets_launch
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, i, i, p, p, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, f, f, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def batch_targets(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
-                  gt_classes: torch.Tensor, matches: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: as ``batch_targets_plain``; one launch for the batch on CUDA.
-    Every code must be below M (``label_match``'s codes are)."""
-    if all(t.device.type == "cpu"
-           for t in (anchor_boxes, gt_boxes, gt_classes, matches)):
-        return batch_targets_plain(anchor_boxes, gt_boxes, gt_classes, matches)
+def batch_codes_targets(
+        anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+        gt_classes: torch.Tensor, valid: torch.Tensor,
+        matched_vals: torch.Tensor, matches: torch.Tensor,
+        best_anchor: torch.Tensor, matched_threshold: float,
+        unmatched_threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: as ``batch_codes_targets_plain``, from K3's outputs (matched
+    values, rows, best anchors); on CUDA one kernel launch for the batch
+    (after a memset of the positive counts), nothing allocated but the
+    outputs. The thresholds are compared in f32, as the plain version
+    compares an f32 tensor with them."""
+    tensors = (gt_boxes, gt_classes, valid, matched_vals, matches,
+               best_anchor)
+    if anchor_boxes.device.type == "cpu" and \
+            all(t.device.type == "cpu" for t in tensors):
+        return batch_codes_targets_plain(anchor_boxes, *tensors,
+                                         matched_threshold,
+                                         unmatched_threshold)
     b, m, a = _check(anchor_boxes, gt_boxes, gt_classes=gt_classes,
-                     matches=matches)
-    for name, t, shape in (("gt_classes", gt_classes, (b, m)),
-                           ("matches", matches, (b, a))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} must be "
-                             f"int32 {list(shape)}")
+                     valid=valid, matched_vals=matched_vals, matches=matches,
+                     best_anchor=best_anchor)
+    if b > 65535:
+        raise ValueError(f"B={b}: the kernel takes at most 65535 images")
     dev = anchor_boxes.device
+    codes = torch.empty((b, a), dtype=torch.int32, device=dev)
     cls_targets = torch.empty((b, a), dtype=torch.int32, device=dev)
     box_targets = torch.empty((b, a, 4), dtype=torch.float32, device=dev)
+    num_positives = torch.empty((b,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _targets_launcher()(
-            anchor_boxes.data_ptr(), a, gt_boxes.data_ptr(),
-            gt_classes.data_ptr(), matches.data_ptr(), b, m,
+            anchor_boxes.data_ptr(), a, *(t.data_ptr() for t in tensors), b,
+            m, matched_threshold, unmatched_threshold, codes.data_ptr(),
             cls_targets.data_ptr(), box_targets.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            num_positives.data_ptr(), cuda_build.stream_handle(dev))
     if err != 0:
-        raise RuntimeError(f"label targets kernel launch failed: CUDA error "
-                           f"{err}")
-    batch_targets.launches += 1
-    return cls_targets, box_targets
+        raise RuntimeError(f"label codes / targets kernel launch failed: CUDA "
+                           f"error {err}")
+    batch_codes_targets.launches += 1
+    return codes, cls_targets, box_targets, num_positives
 
 
-batch_targets.launches = 0
+batch_codes_targets.launches = 0

@@ -125,12 +125,11 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     keep_scores = torch.empty((b, max_out), dtype=torch.float32,
                               device=boxes.device)
     with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(
             boxes.data_ptr(), scores.data_ptr(), b, n, max_out,
             float(iou_threshold), int(bool(soft)), float(sigma),
             float(score_threshold), cluster, keep_idx.data_ptr(),
-            keep_scores.data_ptr(), stream)
+            keep_scores.data_ptr(), cuda_build.stream_handle(boxes.device))
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed (cluster {cluster}): "
                            f"CUDA error {err}")

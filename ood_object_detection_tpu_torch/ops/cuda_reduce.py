@@ -189,11 +189,11 @@ def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
     first = (ctypes.c_int * (n + 1))(*plan.first_tile)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(ptrs, rows, per_image, offsets, first, n,
                           num_classes, plan.tile_rows, sms, plan.a_total,
                           key_all.data_ptr(),
-                          energy_all.data_ptr() if energy else None, stream)
+                          energy_all.data_ptr() if energy else None,
+                          cuda_build.stream_handle(device))
     if err != 0:
         raise RuntimeError(f"key/energy kernel launch failed: CUDA error {err}")
     key_energy_reduce.launches += 1

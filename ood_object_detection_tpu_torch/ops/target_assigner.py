@@ -8,8 +8,8 @@ are padding. Match codes: ``>= 0`` the matched row, ``-1`` unmatched,
 ``-2`` ignored (masked out of the class loss).
 
 ``batch_label_anchors`` is the train step's labeler: K3 (the match
-kernel) -> thresholds and force-match -> K4 (the target kernel), with the
-kernels' plain versions for CPU tensors (``ops/cuda_labeler.py``).
+kernel) -> K4 (thresholds, force-match and targets in one kernel), with
+the kernels' plain versions for CPU tensors (``ops/cuda_labeler.py``).
 ``label_anchors`` labels one image through the [M, A] similarity and
 ``argmax_match``, the JAX package's vmapped path; it serves
 ``AnchorLabeler.label_anchors`` and the episodic ``task_cls`` merge.
@@ -123,9 +123,11 @@ def batch_label_anchors(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
                         kernels: bool = True) -> LabelResult:
     """Label a batch: GT [B, M, 4] / [B, M] -> flat [B, A] targets.
 
-    K3 (``cuda_labeler.batch_match``) -> thresholds + force-match
-    (``label_match``) -> K4 (``cuda_labeler.batch_targets``). The kernels
-    launch for CUDA tensors, their plain versions run for CPU tensors;
+    K3 (``cuda_labeler.batch_match``) -> K4 (``cuda_labeler.
+    batch_codes_targets``: thresholds, force-match and targets), two
+    launches. The kernels launch for CUDA tensors, their plain versions
+    (``batch_match_plain``, ``batch_codes_targets_plain``) run for CPU
+    tensors;
     ``kernels=False`` runs the plain versions on any device (for holding
     the kernels against them). ``unmatched_threshold`` below
     ``match_threshold`` opens the ignore band (code and class target -2).
@@ -139,15 +141,13 @@ def batch_label_anchors(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     valid = gt_classes > -1
     match = cuda_labeler.batch_match if kernels else \
         cuda_labeler.batch_match_plain
-    targets = cuda_labeler.batch_targets if kernels else \
-        cuda_labeler.batch_targets_plain
+    targets = cuda_labeler.batch_codes_targets if kernels else \
+        cuda_labeler.batch_codes_targets_plain
     vals, rows, best = match(anchor_boxes, gt_boxes, valid)
-    matches = cuda_labeler.label_match(vals, rows, best, valid,
-                                       match_threshold, unmatched_threshold)
-    cls_targets, box_targets = targets(anchor_boxes, gt_boxes, gt_classes,
-                                       matches)
-    return LabelResult(cls_targets, box_targets, matches,
-                       (matches >= 0).to(torch.float32).sum(dim=1))
+    matches, cls_targets, box_targets, num_positives = targets(
+        anchor_boxes, gt_boxes, gt_classes, valid, vals, rows, best,
+        match_threshold, unmatched_threshold)
+    return LabelResult(cls_targets, box_targets, matches, num_positives)
 
 
 class AnchorLabeler:

@@ -50,26 +50,46 @@ def test_nms_bound_counts_the_picks_made(picks, soft):
 
 def test_match_bound_counts_the_valid_pairs():
     """K3's bound: MATCH_OPS_PER_PAIR operations for each valid (row,
-    anchor) pair of this run's data, or its bytes, whichever is larger."""
-    a = 49104
-    for rows in ((16, 0), (100, 100)):
-        valid = torch.zeros((len(rows), 100), dtype=torch.bool)
-        for i, n in enumerate(rows):
-            valid[i, :n] = True
-        t_ops = sum(rows) * a * chip_smoke.MATCH_OPS_PER_PAIR / (67e12 / 2)
-        t_bytes = (a * 16 + len(rows) * 100 * 21
-                   + len(rows) * a * 8) / 3.35e12
-        bound_ms, by = chip_smoke.match_bound_ms(valid, a)
-        assert bound_ms == pytest.approx(max(t_ops, t_bytes) * 1e3,
-                                         rel=1e-12)
-        assert by == ("bytes" if t_bytes >= t_ops else "operations")
+    anchor) pair of this run's data and MATCH_OPS_PER_MEET more for each
+    one whose boxes meet, or its bytes, whichever is larger; and the flat
+    yardstick, the sum of the two for every valid pair."""
+    # anchor 2 overlaps anchor 0; anchor 3 touches it at a corner only
+    anchors = torch.tensor([[0.0, 0.0, 10.0, 10.0], [20.0, 20.0, 30.0, 30.0],
+                            [5.0, 5.0, 15.0, 15.0], [10.0, 10.0, 20.0, 20.0]])
+    meets = torch.tensor([[0.0, 0.0, 10.0, 10.0]])
+    far = torch.tensor([[100.0, 100.0, 110.0, 110.0]])
+    # image 0: row 0 meets anchors 0 and 2, the other rows meet none and
+    # the last is padding; image 1 is all padding
+    for rows in (2, 50):
+        gt = torch.cat([meets, far.repeat(rows - 1, 1), meets])
+        gt = gt[None].repeat(2, 1, 1)
+        valid = torch.zeros((2, rows + 1), dtype=torch.bool)
+        valid[0, :rows] = True
+        assert chip_smoke.meeting_pairs(anchors, gt, valid) == 2
+        for tile in (1, 200_000):
+            a = 4 * tile
+            t_ops = (rows * a * chip_smoke.MATCH_OPS_PER_PAIR
+                     + 2 * tile * chip_smoke.MATCH_OPS_PER_MEET) / (67e12 / 2)
+            t_bytes = (a * 16 + 2 * (rows + 1) * 21 + 2 * a * 8) / 3.35e12
+            every = rows * a * 17 / (67e12 / 2)
+            bound_ms, by, every_ms = chip_smoke.match_bound_ms(
+                anchors.repeat(tile, 1), gt, valid)
+            assert bound_ms == pytest.approx(max(t_ops, t_bytes) * 1e3,
+                                             rel=1e-12)
+            assert by == ("bytes" if t_bytes >= t_ops else "operations")
+            assert every_ms == pytest.approx(every * 1e3, rel=1e-12)
+            if tile > 1:
+                assert by == ("operations" if rows == 50 else "bytes")
 
 
 def test_targets_bound_counts_bytes_and_positives():
+    """K4's bound: K3's value and row in and code, class and box out an
+    anchor (32 B), the anchors and the rows once; or 4 operations an
+    anchor and 20 a positive of this run's codes."""
     codes = torch.full((2, 1000), -1, dtype=torch.int32)
     codes[0, :30] = 3
-    t_bytes = (2 * 1000 * 24 + 1000 * 16 + 2 * 100 * 20) / 3.35e12
-    t_ops = 30 * 20 / (67e12 / 2)
+    t_bytes = (2 * 1000 * 32 + 1000 * 16 + 2 * 100 * 25) / 3.35e12
+    t_ops = (2 * 1000 * 4 + 30 * 20) / (67e12 / 2)
     bound_ms, by = chip_smoke.targets_bound_ms(codes, 100)
     assert bound_ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
     assert by == "bytes"

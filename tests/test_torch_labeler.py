@@ -1,8 +1,8 @@
-"""The port's labeler (K3's and K4's plain versions and the torch step
-between them) against the JAX labeler on the CPU: the Pallas kernels in
-interpret mode (``impl="pallas"``, as tests/test_pallas_labeler.py runs
-them) and the vmapped XLA path (``impl="xla"``), on D0's 3069 anchors at
-128 px.
+"""The port's labeler (K3's and K4's plain versions, with the torch
+thresholds and force-match inside K4's) against the JAX labeler on the
+CPU: the Pallas kernels in interpret mode (``impl="pallas"``, as
+tests/test_pallas_labeler.py runs them) and the vmapped XLA path
+(``impl="xla"``), on D0's 3069 anchors at 128 px.
 
 Match codes, class targets, num_positives, matched rows and best anchors
 are held bit for bit. The port's IoU equals ``pairwise_iou_yxyx`` bit for
@@ -165,13 +165,16 @@ def test_label_match_matches_pallas_label_match(anchors):
 
 
 def test_batch_targets_matches_pallas_targets(anchors):
+    """The targets half of K4's plain version (``batch_targets_plain``,
+    which ``label_anchors`` also uses) against ``pallas_batch_targets`` on
+    the same final codes."""
     from ood_object_detection_tpu.ops.pallas_labeler import (
         pallas_batch_targets)
     boxes, cls = _batch(4)
     res = batch_label_anchors(_torch_anchors(anchors),
                               torch.from_numpy(boxes), torch.from_numpy(cls),
                               unmatched_threshold=0.3)
-    c, b = cuda_labeler.batch_targets(
+    c, b = cuda_labeler.batch_targets_plain(
         _torch_anchors(anchors), torch.from_numpy(boxes),
         torch.from_numpy(cls), res.matches)
     jc, jb = pallas_batch_targets(_jax_anchors(anchors), jnp.asarray(boxes),
@@ -180,6 +183,81 @@ def test_batch_targets_matches_pallas_targets(anchors):
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
     np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("unmatched", [None, 0.3])
+def test_batch_codes_targets_matches_pallas(anchors, unmatched):
+    """K4's wrapper on CPU tensors (its plain version) from K3's outputs
+    against ``pallas_label_match`` + ``pallas_batch_targets``: codes, class
+    targets and positives bit for bit, box targets to rtol 1e-5."""
+    from ood_object_detection_tpu.ops.pallas_labeler import (
+        pallas_batch_targets)
+    boxes, cls = _batch(8)
+    valid = torch.from_numpy(cls > -1)
+    t_anchors, t_boxes = _torch_anchors(anchors), torch.from_numpy(boxes)
+    k3 = cuda_labeler.batch_match(t_anchors, t_boxes, valid)
+    threshold = 0.5 if unmatched is None else unmatched
+    codes, c, b, pos = cuda_labeler.batch_codes_targets(
+        t_anchors, t_boxes, torch.from_numpy(cls), valid, *k3, 0.5,
+        threshold)
+    jcodes = jax_label_match(_jax_anchors(anchors), jnp.asarray(boxes),
+                             jnp.asarray(cls), matched_threshold=0.5,
+                             unmatched_threshold=threshold)
+    jc, jb = pallas_batch_targets(_jax_anchors(anchors), jnp.asarray(boxes),
+                                  jnp.asarray(cls), jcodes)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(
+        pos.numpy(), (np.asarray(jcodes) >= 0).sum(axis=1).astype(np.float32))
+    assert ((codes == -2).any() and (c == -2).any()) == (unmatched is not None)
+    assert (codes[-1] == -1).all() and pos[-1] == 0        # all padding
+
+
+@pytest.mark.parametrize("case", ["sixteen", "every", "last", "none"])
+def test_batch_match_train_rows_matches_pallas(anchors, case):
+    """K3's plain version against ``pallas_batch_match`` (block_t 512) at
+    the train path's row count, M = 100: 16 valid rows an image as the
+    train path pads them, every row valid, only the last row valid, and
+    no row valid."""
+    rng = np.random.default_rng(9)
+    b, m = 2, 100
+    yx = rng.uniform(0, IMG - 40, (b, m, 2)).astype(np.float32)
+    hw = rng.uniform(8, 40, (b, m, 2)).astype(np.float32)
+    boxes = np.concatenate([yx, yx + hw], -1)
+    valid = np.zeros((b, m), bool)
+    valid[:, {"sixteen": slice(0, 16), "every": slice(0, m),
+              "last": slice(m - 1, m), "none": slice(0, 0)}[case]] = True
+    vals, rows, best = cuda_labeler.batch_match(
+        _torch_anchors(anchors), torch.from_numpy(boxes),
+        torch.from_numpy(valid))
+    jvals, jrows, jbest = pallas_batch_match(
+        _jax_anchors(anchors), jnp.asarray(boxes), jnp.asarray(valid),
+        block_t=512)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jvals), rtol=1e-6,
+                               atol=0)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(best.numpy(), np.asarray(jbest))
+    assert (best.numpy()[~valid] == 0).all()        # padded rows: anchor 0
+    if case == "none":
+        assert (vals == -1).all() and (rows == 0).all()
+    if case == "last":
+        assert (rows == m - 1).all()
+
+
+@pytest.mark.parametrize("num_anchors", [1, 5, 8, 9, 3069, 49104])
+def test_match_shares_cover_every_anchor_once(num_anchors):
+    """K3's split of an image's anchors over its cluster: the CTAs' ranges
+    follow each other in rank order and cover every anchor exactly once."""
+    shares = cuda_labeler.match_shares(num_anchors)
+    assert len(shares) == cuda_labeler.MATCH_CLUSTER
+    assert shares[0][0] == 0 and shares[-1][1] == num_anchors
+    for (lo, hi), (nxt, _) in zip(shares, shares[1:]):
+        assert lo <= hi == nxt
+    share = cuda_labeler.match_share(num_anchors)
+    assert all(hi - lo <= share for lo, hi in shares)
+    assert share * cuda_labeler.MATCH_CLUSTER >= num_anchors
 
 
 @pytest.mark.parametrize("sim, unmatched, force", [
@@ -244,12 +322,12 @@ def test_kernel_wrappers_take_the_plain_path_on_cpu(anchors):
     ``kernels=False`` switch gives the same labels."""
     boxes, cls = _batch(7)
     before = (cuda_labeler.batch_match.launches,
-              cuda_labeler.batch_targets.launches)
+              cuda_labeler.batch_codes_targets.launches)
     args = (_torch_anchors(anchors), torch.from_numpy(boxes),
             torch.from_numpy(cls))
     a = batch_label_anchors(*args)
     b = batch_label_anchors(*args, kernels=False)
     assert (cuda_labeler.batch_match.launches,
-            cuda_labeler.batch_targets.launches) == before
+            cuda_labeler.batch_codes_targets.launches) == before
     for f in ("matches", "cls_targets", "box_targets", "num_positives"):
         assert torch.equal(getattr(a, f), getattr(b, f))
