@@ -53,8 +53,24 @@ Phases, each synchronised so that a fault shows where it happened:
      batch 32 and 128 with the peak device memory; and where a step's
      time goes (labeling, forward, loss, backward, optimizer + EMA); the
      labeling stage must issue LABEL_OPS device operations a step, K3's
-     cluster launch among them, no more than LABEL_MAX_OPS.
+     cluster launch among them, no more than LABEL_MAX_OPS;
+  8. the episodic meta step (meta_path): the D0 meta model (640 px
+     queries, 256 px supports, 1 class, f32) and a ProjectionNet with
+     MetaConfig defaults; 4 + 8 synthetic episodes rendered on the card
+     and labeled by EpisodeBuilder (K3 -> K4), one phase-A meta step and
+     two phase-B meta steps (second-order MAML), then the adapted head's
+     detections and OOD scores (K1, hard NMS at 0.3, 30 an image); every
+     check of the phase (finite metrics, a meta step every 4th episode,
+     the class head and ProjectionNet moving while the inner LRs, the
+     trunk and every BatchNorm statistic do not, launch counts, kernel
+     and plain detections equal); then episodes a second over windows,
+     the peak device memory, where a phase-B episode's time goes, and
+     K1 / K3 / K4 at the meta shapes beside their bounds.
+Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
+K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
+episode's query labels through the kernels against the plain ones.
 
+Phase 1 also logs whether PIL imports, whether libjpeg and g++ are found.
 Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 
@@ -62,26 +78,36 @@ Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
                                      $CUDA_HOME/bin, default /usr/local/cuda)
 """
 import collections
+import ctypes.util
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
+from ood_object_detection_tpu_torch.data.episodic import EpisodeBuilder
 from ood_object_detection_tpu_torch.config import (
     default_detection_train_config, get_efficientdet_config)
 from ood_object_detection_tpu_torch.factory import create_model
+from ood_object_detection_tpu_torch.meta import (MetaConfig, MetaTrainer,
+                                                 ProjectionNet)
+from ood_object_detection_tpu_torch.meta import episode as mep
+from ood_object_detection_tpu_torch.meta.inner_loop import (class_head,
+                                                            inner_adapt)
 from ood_object_detection_tpu_torch.ops import (cuda_build, cuda_labeler,
                                                 cuda_nms, cuda_reduce)
 from ood_object_detection_tpu_torch.ops import post_process as pp
 from ood_object_detection_tpu_torch.ops.anchors import Anchors
 from ood_object_detection_tpu_torch.ops.boxes import pairwise_iou_yxyx
+from ood_object_detection_tpu_torch.ops.losses import detection_loss_nhwc
 from ood_object_detection_tpu_torch.ops.nms import batched_nms_plain
 from ood_object_detection_tpu_torch.ops.target_assigner import (
     batch_label_anchors)
@@ -119,6 +145,15 @@ MATCH_OPS_PER_MEET = 7
 # the zeroing of K4's positive counts and K4; and the most it may issue
 LABEL_OPS = 4
 LABEL_MAX_OPS = 6
+# the meta path: phase-A and phase-B episodes (one and two meta steps of
+# MetaConfig's meta_batch_size 4), categories of the synthetic episodes,
+# calls in a meta profiler window
+META_EPISODES = (4, 8)
+META_CATS = 6
+META_PROFILE_REPS = 3
+# the card as nvidia-smi names it (name, power limit), set by main(); the
+# meta path's measurements print it on their lines
+CARD = "not read"
 # CUDA runtime calls that put an operation on the card (profiler names)
 RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
 REPO_KERNELS = {
@@ -214,11 +249,11 @@ def k2_compare(levels, energy=True, num_classes=NUM_CLASSES):
     return float((en - en_p).abs().max())
 
 
-def k1_compare(boxes, scores, soft, cluster=None):
+def k1_compare(boxes, scores, soft, cluster=None, max_out=100):
     """K1 (at a forced cluster size, or the wrapper's choice) against its
     plain version: keep indices equal, scores to rtol 1e-6 (hard) or 1e-4
     (soft). Returns the scores' max abs error."""
-    kw = dict(max_out=100, iou_threshold=0.3, soft=soft)
+    kw = dict(max_out=max_out, iou_threshold=0.3, soft=soft)
     keep, kept = cuda_nms.batched_nms(boxes, scores, cluster=cluster, **kw)
     keep_p, kept_p = batched_nms_plain(boxes, scores, **kw)
     sync()
@@ -290,11 +325,12 @@ def ground_truth(batch, gen, cases=False, img=IMG, n=16):
     return boxes, cls
 
 
-def label_compare(anchor_boxes, boxes, cls, unmatched, matched=0.5):
+def label_compare(anchor_boxes, boxes, cls, unmatched, matched=0.5,
+                  exact=False):
     """K3 and K4 against their plain versions on the same inputs (K4's on
     K3's outputs): all bit for bit but the box targets (rtol 1e-5, atol
-    1e-6). Returns (K3's max abs IoU error, K4's max abs box error, the
-    codes, K3's outputs)."""
+    1e-6; bit for bit too with ``exact``). Returns (K3's max abs IoU
+    error, K4's max abs box error, the codes, K3's outputs)."""
     valid = cls > -1
     k3 = cuda_labeler.batch_match(anchor_boxes, boxes, valid)
     p3 = cuda_labeler.batch_match_plain(anchor_boxes, boxes, valid)
@@ -312,6 +348,8 @@ def label_compare(anchor_boxes, boxes, cls, unmatched, matched=0.5):
     check(torch.equal(pos, pos_p), "K4 positive counts differ")
     check(torch.allclose(box_t, box_p, rtol=1e-5, atol=1e-6),
           "K4 box targets differ beyond rtol 1e-5 / atol 1e-6")
+    check(not exact or torch.equal(box_t, box_p),
+          "K4 box targets differ from the plain version's bits")
     return err_k3, float((box_t - box_p).abs().max()), codes, k3
 
 
@@ -449,10 +487,11 @@ def targets_bound_ms(codes, m):
         "operations"
 
 
-def label_kernel_times(anchor_boxes, boxes, cls):
+def label_kernel_times(anchor_boxes, boxes, cls, tag="[7]"):
     """K3 and K4 (CUDA events, after warm-up) beside their bounds and their
-    plain versions on the train path's inputs; no single PyTorch call
-    computes either, so no library time."""
+    plain versions on the given inputs (the train path's, or the meta
+    path's with ``tag`` "[8]"); no single PyTorch call computes either, so
+    no library time."""
     valid = cls > -1
     batch = cls.shape[0]
     codes = batch_label_anchors(anchor_boxes, boxes, cls).matches
@@ -472,11 +511,11 @@ def label_kernel_times(anchor_boxes, boxes, cls):
             *k4_args), 10),
         bound_ms=k4_bound, bound_by=k4_by, library_ms=None)
     for name, t in (("K3", k3), ("K4", k4)):
-        log(f"[7] {name} B={batch}: {t['ms']:.4f} ms, plain "
+        log(f"{tag} {name} B={batch}: {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f} % of "
             "it reached")
-    log(f"[7] K3 B={batch}: {meeting_pairs(anchor_boxes, boxes, valid)} of "
+    log(f"{tag} K3 B={batch}: {meeting_pairs(anchor_boxes, boxes, valid)} of "
         f"{int(valid.sum()) * anchor_boxes.shape[0]} valid pairs meet; bound "
         f"by the flat yardstick ({MATCH_OPS_PER_PAIR + MATCH_OPS_PER_MEET} "
         f"operations every valid pair) {k3_every:.5f} ms, "
@@ -654,6 +693,388 @@ def train_throughput(bench, state, step, tx, tcfg, batch_size, gen):
         log(f"[7] top kernel train B={batch_size}: {ms:.4f} ms {name}")
 
 
+def meta_kernel_cases(gen):
+    """Phase 3's cases at the meta path's shapes: K1 on [31, 5000] -> 30,
+    hard at 0.3, at every cluster size; K3 -> K4 on 31 query images of
+    640 px (76,725 anchors, 100 rows, the last 6 images all padding), bit
+    for bit; and an episode's query labels from EpisodeBuilder through the
+    kernels and through the plain versions, equal."""
+    mc = MetaConfig()
+    q = mc.num_qry + mc.num_zero_images
+    boxes, scores = random_nms_inputs(q, 5000, gen)
+    errs = [k1_compare(boxes, scores, False, cluster=c, max_out=mc.max_dets)
+            for c in cuda_nms.CLUSTER_SIZES]
+    log(f"[3] K1 hard [{q}, 5000] -> {mc.max_dets}: keep equal at clusters "
+        f"{cuda_nms.CLUSTER_SIZES}, score max abs err {max(errs):.3g}")
+    cfg = get_efficientdet_config("efficientdet_d0", num_classes=1,
+                                  image_size=(mc.qry_img_size,) * 2)
+    anchors = torch.from_numpy(Anchors.from_config(cfg).boxes).cuda()
+    boxes, cls = ground_truth(q, gen, img=mc.qry_img_size)
+    cls[mc.num_qry:] = -1
+    _, err, codes, _ = label_compare(anchors, boxes, cls, 0.5, exact=True)
+    check(bool((codes[mc.num_qry:] == -1).all()), "padded images matched")
+    log(f"[3] K3 / K4 [{q}, {MAX_ROWS}] x {anchors.shape[0]} anchors, last "
+        f"{mc.num_zero_images} images all padding: bit-exact")
+    args = synthetic_episode(mc, np.random.default_rng(1), gen, torch.from_numpy(
+        np.random.default_rng(7).integers(40, 255, (META_CATS + 1, 3))
+        .astype(np.uint8)).cuda(), "cuda")
+    got = EpisodeBuilder(cfg, mc, device="cuda").build(*args)
+    want = EpisodeBuilder(cfg, mc, device="cuda", kernels=False).build(*args)
+    sync()
+    for key in ("qry_cls", "qry_box", "qry_num_positives", "proj_cls"):
+        check(torch.equal(got[key], want[key]),
+              f"EpisodeBuilder {key}: kernels and plain versions differ")
+    log(f"[3] EpisodeBuilder query labels through K3 / K4 equal the plain "
+        f"versions' ({int(got['qry_num_positives'].sum())} positives)")
+
+
+def host_facts():
+    """Facts the host-data slice needs about this machine: whether PIL
+    imports, where libjpeg is, where g++ is (None where absent)."""
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    return pil, ctypes.util.find_library("jpeg"), shutil.which("g++")
+
+
+def synthetic_boxes(rng, n, size):
+    """n yxyx boxes as SyntheticEpisodeSource._render draws them: corner in
+    [0, 0.6 size), sides in [0.2, 0.4) size, clipped at size - 1."""
+    y0, x0 = rng.uniform(0, size * 0.6, (2, n))
+    bh, bw = rng.uniform(size * 0.2, size * 0.4, (2, n))
+    return np.stack([y0, x0, np.minimum(y0 + bh, size - 1),
+                     np.minimum(x0 + bw, size - 1)], 1).astype(np.float32)
+
+
+def render(rng, gen, size, cats_per_image, colors, device):
+    """uint8 canvases [N, size, size, 3] on ``device``: noise in [0, 80)
+    and, for each category of an image's list, 1-3 boxes filled with the
+    category's color (SyntheticEpisodeSource._render, drawn on the card).
+    Returns (canvases, per image (boxes [n, 4] yxyx, classes [n]))."""
+    imgs = torch.randint(0, 80, (len(cats_per_image), size, size, 3),
+                         generator=gen, device=device, dtype=torch.uint8)
+    gt = []
+    for i, cats in enumerate(cats_per_image):
+        boxes, classes = [np.zeros((0, 4), np.float32)], []
+        for c in cats:
+            b = synthetic_boxes(rng, int(rng.integers(1, 4)), size)
+            for y0, x0, y1, x1 in b.astype(int):
+                imgs[i, y0:y1, x0:x1] = colors[c]
+            boxes.append(b)
+            classes += [c] * len(b)
+        gt.append((np.concatenate(boxes), np.asarray(classes, np.int32)))
+    return imgs, gt
+
+
+def synthetic_episode(mc, rng, gen, colors, dev):
+    """The ``EpisodeBuilder.build`` arguments of one n-way-1 episode as
+    EpisodicDataset composes it, rendered on ``dev``: num_sup supports of
+    the task category; num_qry queries with task boxes (class 1) and 0-2
+    distractor categories, plus num_zero_images with distractors only (no
+    ground truth); num_qry projection crops labeled with every category."""
+    task = int(rng.integers(1, META_CATS + 1))
+    others = [c for c in range(1, META_CATS + 1) if c != task]
+
+    def distractors(least=0):
+        return [int(c) for c in rng.choice(
+            others, int(rng.integers(least, 3)), replace=False)]
+    supp, _ = render(rng, gen, mc.img_size, [[task]] * mc.num_sup, colors,
+                     dev)
+    qry, qry_gt = render(rng, gen, mc.qry_img_size,
+                         [[task] + distractors() for _ in range(mc.num_qry)]
+                         + [distractors(1)
+                            for _ in range(mc.num_zero_images)], colors, dev)
+    proj, proj_gt = render(rng, gen, mc.img_size,
+                           [[task] + distractors()
+                            for _ in range(mc.n_way * mc.num_qry)], colors,
+                           dev)
+    qry_annos = [dict(bbox=b[c == task],
+                      cls=np.ones(int((c == task).sum()), np.int32))
+                 for b, c in qry_gt]
+    proj_annos = [dict(bbox=b, cls=c) for b, c in proj_gt]
+    return (supp, [np.ones(1, np.float32)] * mc.num_sup, qry, qry_annos,
+            proj, proj_annos, task, [task], False)
+
+
+def _snapshot(tree):
+    return {t: {n: v.detach().clone() for n, v in d.items()}
+            for t, d in tree.items()}
+
+
+def _moved(before, after, tree):
+    return any(not torch.equal(before[tree][n], v.detach())
+               for n, v in after[tree].items())
+
+
+def meta_setup(gen, device="cuda", meta_cfg=None, **model_overrides):
+    """The meta path's objects through the user's entry points: the D0
+    meta model (one class at the query resolution, f32, seed 0, class bias
+    raised by 2 so that detections exist), a ProjectionNet (seed 1), an
+    EpisodeBuilder and a MetaTrainer with ``meta_cfg`` (MetaConfig
+    defaults), and the categories' colors."""
+    meta_cfg = meta_cfg or MetaConfig()
+    size = meta_cfg.qry_img_size
+    model = create_model("efficientdet_d0", num_classes=1, seed=0,
+                         device=device, image_size=(size, size),
+                         **model_overrides)
+    with torch.no_grad():
+        model.class_net.predict_bias().add_(2.0)
+    proj = ProjectionNet(model.config.fpn_channels, meta_cfg.proj_size,
+                         meta_cfg.proj_depth)
+    proj.init_weights(torch.Generator().manual_seed(1))
+    builder = EpisodeBuilder(model.config, meta_cfg, device=device)
+    trainer = MetaTrainer(model, proj, meta_cfg, model.config,
+                          builder.proj_level_sizes, device=device)
+    colors = torch.from_numpy(np.random.default_rng(7).integers(
+        40, 255, (META_CATS + 1, 3)).astype(np.uint8)).to(device)
+    return trainer, builder, colors
+
+
+def meta_path(trainer, builder, colors, gen, episodes=META_EPISODES):
+    """Phase 8: build ``sum(episodes)`` synthetic episodes, run them through
+    ``train_episode`` (the first ``episodes[0]`` in phase A), then the
+    adapted head's detections and OOD scores of the last one, with every
+    check of the phase. Returns (the built episodes, K1 / K3 / K4
+    launches, the detections)."""
+    mc = trainer.meta_cfg
+    model = trainer.model
+    on_card = trainer.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    frozen = {n: t.detach().clone() for n, t in
+              list(model.named_parameters()) + list(model.named_buffers())
+              if not n.startswith("class_net.") or "running_" in n}
+    names = [(t, n) for t, d in trainer.meta_params.items() for n in d]
+    sync_if(on_card)
+    reset_launches()
+    batches = [builder.build(*synthetic_episode(mc, rng, gen, colors,
+                                                trainer.device))
+               for _ in range(sum(episodes))]
+    before = _snapshot(trainer.meta_params)
+    metrics, steps = [], []
+    for i, batch in enumerate(batches):
+        phase_a = i < episodes[0]
+        m = trainer.train_episode(batch, phase_a=phase_a)
+        metrics.append(m)
+        if not phase_a and i % mc.meta_batch_size == mc.meta_batch_size - 2:
+            lrs = [g for (t, _), g in zip(names, trainer.accum)
+                   if t == "inner_lrs"]
+            check(all(bool(torch.isfinite(g).all()) for g in lrs)
+                  and any(bool(g.any()) for g in lrs),
+                  f"episode {i}: the inner LRs' accumulated phase-B "
+                  "gradients are not finite and nonzero")
+        if m.get("meta_step"):
+            now = _snapshot(trainer.meta_params)
+            check(_moved(before, now, "class_net") and
+                  _moved(before, now, "proj"),
+                  f"meta step at episode {i}: the class head or the "
+                  "ProjectionNet did not move")
+            check(not _moved(before, now, "inner_lrs"),
+                  f"meta step at episode {i}: the inner LRs moved before "
+                  f"lr_stage_step {mc.lr_stage_step}")
+            steps.append(i)
+            before = now
+    batch = batches[-1]
+    dets = trainer.episode_detections(batch)
+    ood_dets, det_ood, gt_ood, gt_valid = trainer.episode_ood_scores(batch)
+    sync_if(on_card)
+    launches = {"K1": cuda_nms.batched_nms.launches,
+                "K2": cuda_reduce.key_energy_reduce.launches,
+                "K3": cuda_labeler.batch_match.launches,
+                "K4": cuda_labeler.batch_codes_targets.launches}
+    log(f"[8] meta path: {len(batches)} episodes ({episodes[0]} phase A), "
+        f"meta steps after episodes {steps}, launches {launches}")
+    for i, m in enumerate(metrics):
+        values = {k: float(v) for k, v in m.items()}
+        log(f"[8] episode {i}: " + ", ".join(f"{k} {v:.6g}"
+                                             for k, v in values.items()))
+        check(all(math.isfinite(v) for v in values.values()),
+              f"non-finite metrics at episode {i}")
+    size = mc.meta_batch_size
+    check(steps == list(range(size - 1, len(batches), size)),
+          f"meta steps after episodes {steps}, not every {size}th")
+    now = dict(list(model.named_parameters()) + list(model.named_buffers()))
+    changed = [n for n, t in frozen.items() if not torch.equal(now[n], t)]
+    check(not changed, f"trunk parameters or BatchNorm statistics moved: "
+          f"{changed[:5]}")
+    log(f"[8] class head and ProjectionNet moved at every meta step, the "
+        f"inner LRs did not (LR 0 before step {mc.lr_stage_step}); "
+        f"{len(frozen)} trunk parameters and BatchNorm statistics "
+        "bit-unchanged")
+    q = mc.num_qry + mc.num_zero_images
+    if on_card:
+        check(launches["K3"] == launches["K4"] == len(batches),
+              f"K3 and K4 must launch once a build: {launches}")
+        check(launches["K1"] == 2,
+              f"K1 must launch once a detections / OOD call: {launches}")
+        check(launches["K2"] == 0, "K2 launched on f32 logits")
+    check(tuple(dets.shape) == (q, mc.max_dets, 6)
+          and bool(torch.isfinite(dets).all()), "detections shape / finite")
+    n_det = int((dets[..., 4] > 0).sum())
+    check(n_det > 0, "no detections on the meta path")
+    check(torch.equal(ood_dets, dets), "the OOD path's detections differ")
+    check(tuple(det_ood.shape) == (q, mc.max_dets)
+          and tuple(gt_ood.shape) == tuple(gt_valid.shape)
+          == tuple(batch["qry_gt_cls"].shape)
+          and bool(torch.isfinite(det_ood).all())
+          and bool(torch.isfinite(gt_ood).all()), "OOD shapes / finite")
+    log(f"[8] detections {tuple(dets.shape)}: {n_det} kept; det_ood "
+        f"{tuple(det_ood.shape)}, gt_ood {tuple(gt_ood.shape)}, "
+        f"{int(gt_valid.sum())} valid ground-truth boxes")
+    return batches, launches, dets
+
+
+def meta_plain_compare(trainer, batch):
+    """The adapted head's outputs on ``batch`` through K1 and through its
+    plain version: keep indices equal, detections to 1e-4. Returns (the
+    candidates, the scores' max abs error)."""
+    mc, cfg = trainer.meta_cfg, trainer.model_cfg
+    cls, box = mep._adapted_query_outputs(
+        trainer.model, trainer.proj_net, trainer.meta_params, batch, mc)
+    cand = pp.select_candidates(cls, box, trainer.qry_anchors(),
+                                cfg.num_classes, cfg.max_detection_points)
+    kw = dict(max_det_per_image=mc.max_dets, iou_threshold=mc.nms_thresh)
+    dets_k, keep_k = pp.batch_detection(*cand[:4], kernels=True, **kw)
+    dets_p, keep_p = pp.batch_detection(*cand[:4], kernels=False, **kw)
+    sync()
+    check(torch.equal(keep_k, keep_p), "meta path: keep indices differ")
+    check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
+          "meta path: kernel and plain detections differ")
+    err = float((dets_k[..., 4] - dets_p[..., 4]).abs().max())
+    log(f"[8] kernel and plain detections equal on the meta path "
+        f"({int((keep_k >= 0).sum())} kept), score max abs err {err:.3g}")
+    return cand, err
+
+
+def meta_kernel_times(trainer, batch, cand, anchor_boxes):
+    """K1 at the meta path's candidates (hard NMS, 30 an image) and K3 / K4
+    on an episode's query ground truth at 640 px: CUDA-event times beside
+    their bounds and plain versions."""
+    mc = trainer.meta_cfg
+    _, scores, offset_boxes = pp.nms_inputs(*cand[:4])
+    kw = dict(max_out=mc.max_dets, iou_threshold=mc.nms_thresh, soft=False)
+    keep, _ = cuda_nms.batched_nms(offset_boxes, scores, **kw)
+    bound, by = nms_bound_ms(keep, scores.shape[1], soft=False)
+    k1 = dict(ms=cuda_ms(lambda: cuda_nms.batched_nms(offset_boxes, scores,
+                                                      **kw), 50),
+              plain_ms=cuda_ms(lambda: batched_nms_plain(offset_boxes, scores,
+                                                         **kw), 5),
+              bound_ms=bound, bound_by=by, library_ms=None)
+    picks = int(torch.clamp((keep >= 0).sum(dim=1) + 1, max=mc.max_dets).max())
+    dev = torch.cuda.current_device()
+    log(f"[8] [{CARD}] K1 hard [{scores.shape[0]}, {scores.shape[1]}] -> "
+        f"{mc.max_dets}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} ms, "
+        f"bound {bound:.5f} ms ({by}); cluster "
+        f"{cuda_nms.device_cluster_size(dev, *scores.shape)}, "
+        f"{k1['ms'] * 1e3 / picks:.3f} us a pick over {picks} picks")
+    t = label_kernel_times(anchor_boxes, batch["qry_gt_bbox"],
+                           batch["qry_gt_cls"], tag=f"[8] [{CARD}]")
+    return {"K1": k1, **t}
+
+
+def meta_throughput(trainer, batches, window_s=WINDOW_S):
+    """Episodes a second over a ``window_s`` window in each phase (each
+    episode ending in a synchronise; a meta step every meta_batch_size
+    episodes), the median / least / most episode time and meta-step time
+    (the meta batch's episodes with the update), and the peak device
+    memory."""
+    size = trainer.meta_cfg.meta_batch_size
+    torch.cuda.reset_peak_memory_stats()
+    for phase_a, pool in ((True, batches[:META_EPISODES[0]]),
+                          (False, batches[META_EPISODES[0]:])):
+        name = "A" if phase_a else "B"
+        times, steps, acc = [], [], 0.0
+        start = time.perf_counter()
+        while time.perf_counter() - start < window_s or len(times) < size:
+            t0 = time.perf_counter()
+            m = trainer.train_episode(pool[len(times) % len(pool)], phase_a)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            acc += times[-1]
+            if m.get("meta_step"):
+                steps.append(acc)
+                acc = 0.0
+        ep = sorted(times)
+        log(f"[8] [{CARD}] phase {name}: {len(times) * 1e3 / sum(times)} "
+            "episodes/s "
+            f"over {len(times)} episodes; episode ms median "
+            f"{ep[len(ep) // 2]}, min {ep[0]}, max {ep[-1]}; meta step ms "
+            f"(its {size} episodes and the update) median "
+            f"{sorted(steps)[len(steps) // 2]}, min {min(steps)}, max "
+            f"{max(steps)} over {len(steps)}")
+    log(f"[8] [{CARD}] peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def meta_profile(trainer, batch):
+    """Where a phase-B episode's time goes (profile_window): the whole
+    episode's meta-gradient, its forward (the episode loss), and its
+    stages apart — the supports' trunk, the inner adaptation (second
+    order), the queries' trunk and box head, the query class head with
+    the adapted weights and the detection loss, the projection
+    regularizer; backward is episode minus forward."""
+    model, proj, mc = trainer.model, trainer.proj_net, trainer.meta_cfg
+    mp = trainer.meta_params
+    cfg = trainer.model_cfg
+    with torch.no_grad():
+        supp = mep._image_features(model, batch["supp_images"], mc)
+        qry = mep._image_features(model, batch["qry_images"], mc)
+        box = mep._box_head(model, qry, mc)
+    fast, _ = inner_adapt(model, proj, mp["class_net"], mp["proj"],
+                          mp["inner_lrs"], supp, mc)
+
+    def support_trunk():
+        with torch.no_grad():
+            return mep._image_features(model, batch["supp_images"], mc)
+
+    def query_trunk_box():
+        with torch.no_grad():
+            return mep._box_head(model, mep._image_features(
+                model, batch["qry_images"], mc), mc)
+
+    def query_class_loss():
+        return detection_loss_nhwc(
+            class_head(model, qry, fast), box, batch["qry_cls"],
+            batch["qry_box"], batch["qry_num_positives"], cfg.num_classes,
+            cfg.alpha, cfg.gamma, cfg.delta, cfg.box_loss_weight,
+            label_smoothing=cfg.label_smoothing,
+            legacy_focal=cfg.legacy_focal,
+            focal_modulation=cfg.focal_modulation)
+
+    stages = {
+        "episode (loss + meta-gradient)":
+            lambda: trainer.episode_grads(batch, phase_a=False),
+        "episode loss (forward)": lambda: mep.maml_episode_loss(
+            model, proj, mp, batch, mc, cfg, trainer.proj_level_sizes),
+        "support trunk": support_trunk,
+        "inner adapt (second order)": lambda: inner_adapt(
+            model, proj, mp["class_net"], mp["proj"], mp["inner_lrs"], supp,
+            mc),
+        "query trunk + box head": query_trunk_box,
+        "query class head + loss": query_class_loss,
+        "projection regularizer": lambda: mep.projection_phase_loss(
+            model, proj, mp["class_net"], mp["proj"], batch, mc,
+            trainer.proj_level_sizes),
+    }
+    top = collections.Counter()
+    for name, fn in stages.items():
+        numbers, device, _ = profile_window(fn, META_PROFILE_REPS)
+        log(f"[8] [{CARD}] profile phase-B episode {name}: " + ", ".join(
+            f"{k} {v}" for k, v in numbers.items()))
+        if name.startswith("episode (loss"):
+            for e in device:
+                top[e.name[:80]] += (e.time_range.end - e.time_range.start
+                                     ) / 1e3 / META_PROFILE_REPS
+    for name, ms in top.most_common(12):
+        log(f"[8] [{CARD}] top kernel phase-B episode: {ms:.4f} ms {name}")
+
+
+def sync_if(on_card):
+    if on_card:
+        sync()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -669,8 +1090,14 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     log(f"[1] card: {smi}; torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
+    pil, jpeg, gxx = host_facts()
+    log(f"[1] host: PIL {pil or 'does not import'}; libjpeg "
+        f"{jpeg or 'not found'} (ctypes.util.find_library); g++ "
+        f"{gxx or 'not on PATH'}")
 
     # 2. build
     t0 = time.time()
@@ -736,6 +1163,7 @@ def main():
             if batch == TRAIN_BATCH:
                 err_match = err_k3
     label_hazards(anchor_boxes, gen)
+    meta_kernel_cases(gen)
     sync()
 
     # 4. main path: 3 requests of 16 canvases
@@ -815,6 +1243,20 @@ def main():
                 t.update(t_label)
         for batch in (TRAIN_BATCH, 128):
             train_throughput(*train[:5], batch, gen)
+    sync()
+    del train
+    torch.cuda.empty_cache()
+
+    # 8. the meta path: 1 phase-A and 2 phase-B meta steps, the adapted
+    #    head's detections and OOD scores; then its times
+    with torch.enable_grad():
+        trainer, builder, colors = meta_setup(gen)
+        batches, _, _ = meta_path(trainer, builder, colors, gen)
+        cand, _ = meta_plain_compare(trainer, batches[-1])
+        meta_kernel_times(trainer, batches[-1], cand, torch.from_numpy(
+            builder.qry_anchors.boxes).cuda())
+        meta_throughput(trainer, batches)
+        meta_profile(trainer, batches[-1])
     sync()
 
     kernels = [

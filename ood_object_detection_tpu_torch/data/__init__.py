@@ -1,1 +1,1 @@
-"""On-device input preprocessing."""
+"""On-device input preprocessing and episode assembly."""

@@ -14,15 +14,20 @@ The input is cast to ``config.compute_dtype`` once, as in the JAX model
 Train / eval mode selects the BatchNorm statistics, as the JAX model's
 ``training`` flag does: ``train_bn(freeze_bn)`` puts the model in train
 mode with the BatchNorm of the frozen scope in eval mode (the JAX train
-step's ``freeze_bn``). The ``remat_fpn`` / ``remat_heads`` options are not
-ported yet and raise.
+step's ``freeze_bn``). The staged methods of the episodic harness
+(``backbone_features``, ``fpn_features``, ``class_head``, ``box_head``)
+take the normalisation from the module's mode; ``layers.
+batch_stats_mode`` switches a subnet to batch statistics that write
+nothing. The ``remat_fpn`` / ``remat_heads`` options are not ported yet and
+raise.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..config.model_config import ModelConfig
 from .backbone import create_backbone
@@ -45,8 +50,6 @@ class EfficientDet(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.separate_head:
-            raise NotImplementedError("separate_head is not ported yet")
         if config.remat_fpn or config.remat_heads:
             raise NotImplementedError("remat_fpn / remat_heads are not "
                                       "ported yet")
@@ -56,19 +59,23 @@ class EfficientDet(nn.Module):
             config.backbone_name, **(config.backbone_args or {}))
         self.feature_info = tuple(feature_info)
         self.fpn = BiFpn(config, self.feature_info)
-        self.class_net = HeadNet(config, config.num_classes)
+        self.class_net = HeadNet(config, config.num_classes,
+                                 separate_head=config.separate_head)
         self.box_net = HeadNet(config, 4)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Draw every conv from the JAX package's initialiser for it, in
         module order, from ``generator``; the class head's predict bias
-        starts at the focal prior. BatchNorm and the BiFPN edge weights
-        keep their constructed values (1, 0, mean 0, var 1; ones)."""
+        starts at the focal prior (``predict_sep``'s too). BatchNorm and
+        the BiFPN edge weights keep their constructed values (1, 0, mean 0,
+        var 1; ones)."""
         for module in self.modules():
             if isinstance(module, Conv2d):
                 init_conv_(module, generator)
         self.class_net.predict_bias().fill_(PRIOR_BIAS)
+        if self.class_net.predict_sep is not None:
+            self.class_net.predict_sep.bias.fill_(PRIOR_BIAS)
 
     def train_bn(self, freeze_bn: str = "none") -> "EfficientDet":
         """Train mode, with the BatchNorm of the ``freeze_bn`` scope in eval
@@ -102,6 +109,28 @@ class EfficientDet(nn.Module):
         """Pyramid (NHWC) -> (class outputs, box outputs) per level."""
         activs = _nchw(activs)
         return _nhwc(self.class_net(activs)), _nhwc(self.box_net(activs))
+
+    def class_head(self, activs: List[torch.Tensor], ret_activs: bool = False,
+                   level_offset: int = 0, force_batch_stats: bool = False,
+                   heads: str = "main",
+                   params: Optional[Dict[str, torch.Tensor]] = None):
+        """Pyramid (NHWC) -> class outputs (NHWC) of the levels from
+        ``level_offset`` on; see ``HeadNet.forward`` for ``ret_activs``,
+        ``force_batch_stats`` and ``heads``. ``params`` (class head
+        parameter name -> tensor) stands in for the head's own parameters,
+        as the JAX package applies the model with another ``class_net``
+        subtree: the MAML inner loop's fast weights."""
+        args = (_nchw(activs), ret_activs, level_offset, force_batch_stats,
+                heads)
+        out = self.class_net(*args) if params is None else \
+            functional_call(self.class_net, params, args)
+        if isinstance(out, tuple):
+            return tuple(_nhwc(o) for o in out)
+        return _nhwc(out)
+
+    def box_head(self, activs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Pyramid (NHWC) -> box outputs per level (NHWC)."""
+        return _nhwc(self.box_net(_nchw(activs)))
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:

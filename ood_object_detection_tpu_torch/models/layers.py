@@ -14,6 +14,7 @@ Padding: ``pad_type='same'`` is TF SAME (asymmetric for stride > 1);
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional
 
@@ -132,7 +133,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     clipped at 0 (flax ``use_fast_variance``), normalise and apply the
     affine in f32, cast back to the input's dtype. The running statistics
     are then updated in place, under no_grad, with the biased batch
-    variance: ``ra = (1 - m) * ra + m * batch`` with ``m = momentum``.
+    variance: ``ra = (1 - m) * ra + m * batch`` with ``m = momentum``,
+    unless ``write_stats`` is False (``batch_stats_mode``).
     ``F.batch_norm(training=True)`` is not used: it updates the running
     variance with the unbiased variance (N / (N - 1) larger).
     """
@@ -140,6 +142,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def __init__(self, num_features: int, eps: float = 1e-3,
                  momentum: float = 0.01):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        self.write_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -149,11 +152,31 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = x32.mean(dim=(0, 2, 3))
         var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean,
                           min=0.0)
-        update_running_stats(self, mean, var, 1.0 - self.momentum)
+        if self.write_stats:
+            update_running_stats(self, mean, var, 1.0 - self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
             + self.bias.view(1, -1, 1, 1)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_mode(module: nn.Module, batch_stats: bool = True):
+    """Within the block every BatchNorm of ``module`` (the modules with a
+    ``write_stats`` flag) normalises with the batch statistics
+    (``batch_stats``) or with its running ones, and writes no running
+    statistic; each one's mode and flag are restored after. The JAX
+    package's ``apply(training=True, mutable=["batch_stats"])`` with the
+    new statistics thrown away (``meta/episode.py:48-60``)."""
+    norms = [m for m in module.modules() if hasattr(m, "write_stats")]
+    saved = [(m.training, m.write_stats) for m in norms]
+    for m in norms:
+        m.training, m.write_stats = batch_stats, False
+    try:
+        yield
+    finally:
+        for m, (training, write) in zip(norms, saved):
+            m.training, m.write_stats = training, write
 
 
 @torch.no_grad()

@@ -102,11 +102,14 @@ class Anchors:
                     f"2**max_level = {2 ** self.max_level}")
 
     @classmethod
-    def from_config(cls, config: ModelConfig,
-                    img_size: int | None = None) -> "Anchors":
+    def from_config(cls, config: ModelConfig, img_size: int | None = None,
+                    min_level_offset: int = 0) -> "Anchors":
+        """Anchors for a model config; ``img_size`` (square) and
+        ``min_level_offset`` override the image size and raise the lowest
+        level, as the episodic pipeline does for its support crops."""
         image_size = ((img_size, img_size) if img_size is not None
                       else tuple(config.image_size))
-        return cls(min_level=config.min_level,
+        return cls(min_level=config.min_level + min_level_offset,
                    max_level=config.max_level,
                    num_scales=config.num_scales,
                    aspect_ratios=tuple(config.aspect_ratios),

@@ -17,13 +17,18 @@ of the JAX package's torch-name converter
   {class,box}_net.conv_rep.R.*             {class,box}_net/conv_rep_R/*
   {class,box}_net.bn_rep.R.L.bn.*          {class,box}_net/bn_rep_R_L/*
   {class,box}_net.predict.*                {class,box}_net/predict/*
+  class_net.predict_sep.*                  class_net/predict_sep/*
 
 Layouts: conv ``[kh, kw, in/g, out]`` -> ``[out, in/g, kh, kw]``; dense
 ``[in, out]`` -> ``[out, in]``; norm ``scale/bias`` -> ``weight/bias`` and
 ``batch_stats`` ``mean/var`` -> ``running_mean/running_var``.
 
 ``load_jax_ema`` carries a JAX train state's ``ema_params`` tree into the
-port's EMA copy the same way.
+port's EMA copy the same way. For the episodic harness,
+``load_jax_projection`` loads a JAX ProjectionNet's parameters
+(``dense_{i}/kernel`` -> ``dense.{i}.weight``, and the gate scalars
+``dot_mult`` / ``dot_add``) and ``inner_lrs_from_jax`` turns the JAX inner
+LRs into the port's dict of tensors.
 """
 from __future__ import annotations
 
@@ -153,3 +158,35 @@ def load_jax_ema(ema_params: Dict[str, torch.Tensor], model: nn.Module,
     with torch.no_grad():
         for name, value in tensors.items():
             ema_params[name].copy_(value)
+
+
+def load_jax_projection(proj_net: nn.Module, proj_params: Dict[str, Any]
+                        ) -> None:
+    """Load a JAX ProjectionNet's ``{"dense_i": {"kernel": [in, out]},
+    "dot_mult": (), "dot_add": ()}`` into ``proj_net`` in place. Strict:
+    every port tensor must have its variable, and every variable a
+    tensor."""
+    tensors = {}
+    for name, p in proj_net.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "dense":
+            arr = np.array(proj_params[f"dense_{parts[1]}"]["kernel"],
+                           np.float32).T
+        else:
+            arr = np.array(proj_params[name], np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: variable shape {arr.shape}, the "
+                             f"model {tuple(p.shape)}")
+        tensors[name] = torch.tensor(arr)
+    if len(tensors) != len(proj_params):
+        raise ValueError(f"variables {sorted(proj_params)} do not match "
+                         f"the ProjectionNet {sorted(tensors)}")
+    with torch.no_grad():
+        for name, p in proj_net.named_parameters():
+            p.copy_(tensors[name])
+
+
+def inner_lrs_from_jax(inner_lrs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX inner-LR tree (``init_inner_lrs``) as f32 CPU tensors."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in inner_lrs.items()}

@@ -93,3 +93,28 @@ def test_targets_bound_counts_bytes_and_positives():
     bound_ms, by = chip_smoke.targets_bound_ms(codes, 100)
     assert bound_ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
     assert by == "bytes"
+
+
+def test_meta_path_drive_runs_on_the_cpu():
+    """Phase 8's drive (meta_setup + meta_path) on the CPU at 128 px with a
+    one-cell, one-repeat D0, meta batches of 2 and 2 + 4 episodes: every
+    check of the phase that does not need the card passes (finite
+    metrics, a meta step every 2nd episode, the class head and
+    ProjectionNet moving, the inner LRs, trunk and BatchNorm statistics
+    not, detection and OOD shapes); the plain versions launch nothing."""
+    meta = chip_smoke.MetaConfig(num_sup=2, num_qry=3, num_zero_images=1,
+                                 img_size=128, qry_img_size=128,
+                                 meta_batch_size=2)
+    gen = torch.Generator().manual_seed(0)
+    with torch.enable_grad():
+        trainer, builder, colors = chip_smoke.meta_setup(
+            gen, device="cpu", meta_cfg=meta, fpn_cell_repeats=1,
+            box_class_repeats=1)
+        batches, launches, dets = chip_smoke.meta_path(
+            trainer, builder, colors, gen, episodes=(2, 4))
+    assert len(batches) == 6 and tuple(dets.shape) == (4, 30, 6)
+    assert set(launches.values()) == {0}
+    # the zero image has no ground truth; the projection crops carry the
+    # task class (0-based) among their anchor labels
+    assert not bool((batches[0]["qry_gt_cls"][-1] > 0).any())
+    assert bool((batches[0]["proj_cls"] == batches[0]["task_cls"]).any())

@@ -26,6 +26,14 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.train",
     "ood_object_detection_tpu_torch.train.train_state",
     "ood_object_detection_tpu_torch.utils.from_jax",
+    "ood_object_detection_tpu_torch.meta",
+    "ood_object_detection_tpu_torch.meta.config",
+    "ood_object_detection_tpu_torch.meta.projection",
+    "ood_object_detection_tpu_torch.meta.clustering",
+    "ood_object_detection_tpu_torch.meta.inner_loop",
+    "ood_object_detection_tpu_torch.meta.episode",
+    "ood_object_detection_tpu_torch.data.dataset",
+    "ood_object_detection_tpu_torch.data.episodic",
 )
 
 
@@ -70,6 +78,20 @@ def test_create_model_without_device_needs_cuda(monkeypatch, bench_task):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_model("efficientdet_d0", bench_task=bench_task)
+
+
+def test_meta_trainer_without_device_needs_cuda(monkeypatch):
+    from ood_object_detection_tpu_torch.config import get_efficientdet_config
+    from ood_object_detection_tpu_torch.meta import (MetaConfig, MetaTrainer,
+                                                     ProjectionNet)
+    from ood_object_detection_tpu_torch.models.efficientdet import (
+        EfficientDet)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_efficientdet_config("efficientdet_d0", num_classes=1).replace(
+        image_size=(128, 128), fpn_cell_repeats=1, box_class_repeats=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MetaTrainer(EfficientDet(cfg), ProjectionNet(64), MetaConfig(), cfg,
+                    [576, 144, 36])
 
 
 def test_unported_train_options_raise():
