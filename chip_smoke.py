@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one CUDA card and hold its
+"""Drive the PyTorch port's paths on one CUDA card and hold its
 hand-written kernels against their plain PyTorch versions.
 
-Both paths run EfficientDet-D0 at its full width (512 x 512 input, 90
-classes, bf16 compute), random weights from a seed:
+Predict, train and validate run EfficientDet-D0 at its full width (512 x
+512 input, 90 classes, bf16 compute), random weights from a seed (the
+meta path, phase 8, its meta model):
   - predict (gaussian soft-NMS, energy OOD, 5000 candidates, 100
     detections): uint8 canvases -> letterbox + normalise -> forward -> K2
     (packed key + energy reduce) -> top-k -> decode -> K1 (NMS) ->
@@ -11,7 +12,11 @@ classes, bf16 compute), random weights from a seed:
   - train (momentum SGD, clip 10, EMA, freeze_bn='backbone', alpha-only
     focal + huber loss): padded ground truth [B, 100] -> K3 (anchor match)
     -> K4 (thresholds, force-match, class and box targets) -> forward with
-    train-mode BatchNorm -> loss -> backward -> clipped SGD + EMA.
+    train-mode BatchNorm -> loss -> backward -> clipped SGD + EMA;
+  - validate (hard NMS, energy OOD, batch 8): JPEGs of a COCO-layout split
+    -> PIL decode + letterbox on host threads -> pinned copy to the card
+    -> normalise -> forward -> K2 -> top-k -> K1 -> the evaluator thread
+    -> mAP.
 
 Phases, each synchronised so that a fault shows where it happened:
   1. the card's name and power limit (nvidia-smi);
@@ -20,10 +25,11 @@ Phases, each synchronised so that a fault shows where it happened:
      logits at D0@512, batch 16 and 128, on D0@128 levels at batch 3 (a
      ragged last tile, 9 anchors an image at P7), keys only (energy=False)
      and at 20 and 21 classes (another even class count, and an odd one);
-     K1 hard and soft at [16, 5000] and [128, 5000] with tied scores and
-     an all-zero image, and at [2, 1001], each at every cluster size 1,
-     2, 4, 8; K3 / K4 at the train path's shapes (49,104 anchors, 100
-     rows), batch 32 and 128, with identical rows, a row that overlaps no
+     K1 hard and soft at [16, 5000], [128, 5000], [8, 5000] and [5, 5000]
+     with tied scores and an all-zero image, and at [2, 1001], each at the
+     wrapper's cluster size and at every cluster size 1, 2, 4, 8; K3 / K4
+     at the train path's shapes (49,104 anchors, 100 rows), batch 32 and
+     128, with identical rows, a row that overlaps no
      anchor, an all-padding image and a 0.3 / 0.5 ignore band; on D0@128's
      3069 anchors at batch 3 (a ragged split over K3's cluster); with
      every row valid and with only the last row valid; with a row whose
@@ -66,9 +72,21 @@ Phases, each synchronised so that a fault shows where it happened:
      and plain detections equal); then episodes a second over windows,
      the peak device memory, where a phase-B episode's time goes, and
      K1 / K3 / K4 at the meta shapes beside their bounds.
+  9. the offline evaluation entry point (validate_path): a COCO-2017
+     layout split of VAL_IMAGES JPEGs written with PIL and a
+     reference-named .pth of the seeded D0 (three class biases raised);
+     ``validate.main`` over it at D0@512, bf16, energy OOD, batch 8 (a
+     partial last batch of 5): 61 images, finite metrics, K1 and K2 once a
+     batch; on the same batches the kernel and plain paths keep the same
+     candidates and detections; ``--topk-method exact`` and ``approx`` on 2
+     batches, their candidate ids equal to the plain versions'; the COCO
+     and PASCAL evaluators at AP 1.0 on the ground truth as detections;
+     then load / predict / evaluate wall time, images/s, the card's idle
+     share over one batch and K1 (hard) / K2 at batch 8 and 5.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
 K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
-episode's query labels through the kernels against the plain ones.
+episode's query labels through the kernels against the plain ones, and
+K1 at the validate path's [8, 5000] and [5, 5000].
 
 Phase 1 also logs whether PIL imports, whether libjpeg and g++ are found.
 Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
@@ -78,12 +96,17 @@ Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
                                      $CUDA_HOME/bin, default /usr/local/cuda)
 """
 import collections
+import contextlib
 import ctypes.util
+import io
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,7 +116,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
+from ood_object_detection_tpu_torch import validate
 from ood_object_detection_tpu_torch.data.episodic import EpisodeBuilder
+from ood_object_detection_tpu_torch.evaluation import (CocoEvaluator,
+                                                       PascalEvaluator,
+                                                       native)
 from ood_object_detection_tpu_torch.config import (
     default_detection_train_config, get_efficientdet_config)
 from ood_object_detection_tpu_torch.factory import create_model
@@ -115,6 +142,7 @@ from ood_object_detection_tpu_torch.train import (create_train_state,
                                                   make_train_step)
 from ood_object_detection_tpu_torch.train.train_state import (
     apply_gradients, detection_loss)
+from ood_object_detection_tpu_torch.utils import from_jax
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, and the f32
 # rate outside the tensor cores. The data sheet's 67 TFLOP/s counts a
@@ -151,6 +179,12 @@ LABEL_MAX_OPS = 6
 META_EPISODES = (4, 8)
 META_CATS = 6
 META_PROFILE_REPS = 3
+# the validate path: images of the COCO-layout split (a partial last batch
+# of 5 at batch 8), COCO's usual image sizes (h, w), its categories
+VAL_IMAGES = 61
+VAL_BATCH = 8
+COCO_SIZES = ((480, 640), (640, 480), (427, 640), (375, 500), (612, 612))
+COCO_CATS = ((1, "person"), (3, "car"), (18, "dog"))
 # the card as nvidia-smi names it (name, power limit), set by main(); the
 # meta path's measurements print it on their lines
 CARD = "not read"
@@ -1070,6 +1104,235 @@ def meta_profile(trainer, batch):
         log(f"[8] [{CARD}] top kernel phase-B episode: {ms:.4f} ms {name}")
 
 
+def write_coco_fixture(root, n=VAL_IMAGES, seed=0):
+    """A COCO-2017-layout val split under ``root``: n JPEGs at COCO's
+    usual sizes in ``val2017/``, each dark noise with 1-4 flat coloured
+    boxes of COCO_CATS (a colour a category), and their boxes in
+    ``annotations/instances_val2017.json``."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "val2017"), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    colors = {cid: rng.integers(80, 256, 3) for cid, _ in COCO_CATS}
+    images, anns = [], []
+    for i in range(n):
+        h, w = COCO_SIZES[i % len(COCO_SIZES)]
+        img = rng.integers(0, 60, (h, w, 3)).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 5))):
+            bh, bw = rng.uniform(0.1, 0.5) * h, rng.uniform(0.1, 0.5) * w
+            y, x = rng.uniform(0, h - bh), rng.uniform(0, w - bw)
+            cid = COCO_CATS[int(rng.integers(len(COCO_CATS)))][0]
+            img[int(y):int(y + bh), int(x):int(x + bw)] = colors[cid]
+            box = [round(float(v), 2) for v in (x, y, bw, bh)]
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                             category_id=cid, bbox=box, iscrowd=0,
+                             area=box[2] * box[3]))
+        name = f"{i + 1:012d}.jpg"
+        Image.fromarray(img).save(os.path.join(root, "val2017", name),
+                                  quality=90)
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+    with open(os.path.join(root, "annotations", "instances_val2017.json"),
+              "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=cid, name=name) for cid, name in COCO_CATS]), f)
+
+
+def reference_name(path, leaf):
+    """The reference effdet torch name of a JAX-tree variable (module path,
+    leaf): the inverse of checkpoint_convert._translate_name."""
+    parts = []
+    for p in path:
+        if re.fullmatch(r"blocks_\d+_\d+", p):
+            parts += ["blocks"] + p.split("_")[1:]
+        elif p == "bn_stem":
+            parts.append("bn1")
+        elif re.fullmatch(r"(resample|cell|fnode|conv_rep)_\d+", p):
+            parts += p.rsplit("_", 1)
+        elif p == "after_combine_conv":
+            parts += ["after_combine", "conv"]
+        elif re.fullmatch(r"bn_rep_\d+_\d+", p):
+            parts += ["bn_rep"] + p.split("_")[2:] + ["bn"]
+        else:
+            parts.append(p)
+    torch_leaf = {"kernel": "weight", "scale": "weight",
+                  "mean": "running_mean", "var": "running_var"}
+    return ".".join(parts + [torch_leaf.get(leaf, leaf)])
+
+
+def reference_state_dict(model):
+    """``model``'s tensors under the reference effdet names: each tensor's
+    JAX-tree path (utils.from_jax's rules) turned back into its torch
+    name."""
+    state = {}
+    for module_name, module in model.named_modules():
+        is_norm = isinstance(module, from_jax._NORMS)
+        for leaf, t in (list(module.named_parameters(recurse=False))
+                        + list(module.named_buffers(recurse=False))):
+            target = from_jax._flax_leaf(leaf, is_norm)
+            if target is not None:
+                state[reference_name(from_jax._flax_module_path(module_name),
+                                     target[1])] = t.detach().cpu().clone()
+    return state
+
+
+def write_reference_pth(path):
+    """The seeded D0 (90 classes, seed 0) with three class biases raised by
+    2, saved as a reference-named state_dict."""
+    model = create_model("efficientdet_d0", num_classes=NUM_CLASSES, seed=0,
+                         device="cpu")
+    with torch.no_grad():
+        model.class_net.predict_bias().view(9, NUM_CLASSES)[:, :3] += 2.0
+    torch.save(reference_state_dict(model), path)
+
+
+def validate_path(root, pth, device="cuda", image_size=IMG, batch=VAL_BATCH):
+    """Phase 9's drive: ``validate.main`` over the COCO-layout split at
+    ``root`` with the reference-named weights ``pth`` (bf16, energy OOD),
+    with every check of the phase that its device allows. Returns
+    (validate's metrics, the K1 / K2 launches of that run, the predict
+    bench, the loader's batches, the run_validation times of a second,
+    warm pass)."""
+    on_card = torch.device(device).type == "cuda"
+    common = ["--dataset", "coco2017", "--data", root, "--checkpoint", pth,
+              "--batch-size", str(batch), "--ood-method", "energy",
+              "--compute-dtype", "bfloat16", "--image-size", str(image_size)]
+    if not on_card:           # the card is validate's default device
+        common += ["--device", device]
+
+    def run(extra):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):      # validate's JSON line
+            metrics = validate.main(common + extra)
+        sync_if(on_card)
+        return metrics, out.getvalue().strip()
+
+    n_images = len(json.load(open(os.path.join(
+        root, "annotations", "instances_val2017.json")))["images"])
+    n_batches = -(-n_images // batch)
+    reset_launches()
+    metrics, printed = run([])
+    launches = {"K1": cuda_nms.batched_nms.launches,
+                "K2": cuda_reduce.key_energy_reduce.launches}
+    log(f"[9] [{CARD}] validate: {printed}; launches {launches}")
+    check(metrics["images"] == n_images,
+          f"validate evaluated {metrics['images']} of {n_images} images")
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"non-finite metrics {metrics}")
+    check("ood_mean" in metrics, "no detections to score")
+    if on_card:
+        check(launches == {"K1": n_batches, "K2": n_batches},
+              f"K1 and K2 must launch once a batch ({n_batches}): "
+              f"{launches}")
+
+    args = validate.build_argparser().parse_args(common)
+    bench = create_model("efficientdet_d0", bench_task="predict",
+                         num_classes=NUM_CLASSES, checkpoint_path=pth,
+                         ood_method="energy", compute_dtype="bfloat16",
+                         image_size=(image_size, image_size), device=device)
+    batches = list(validate.make_val_loader(args, bench.config,
+                                            torch.device(device)))
+    check(len(batches) == n_batches
+          and batches[-1]["image"].shape[0] == n_images - batch * (
+              n_batches - 1), "the loader's batches")
+
+    # the kernels and their plain versions on every batch
+    for b in batches:
+        cls, box = bench.model(b["image"])
+        cand_k, cand_p = (pp.select_candidates(
+            cls, box, bench.anchors, NUM_CLASSES, 5000, "energy", kernels=k)
+            for k in (True, False))
+        check(all(torch.equal(x, y) for x, y in zip(cand_k[:-1],
+                                                    cand_p[:-1])),
+              f"candidates differ between K2 and its plain version at "
+              f"B={cls[0].shape[0]}")
+        check(torch.allclose(cand_k.ood_all, cand_p.ood_all, rtol=1e-5,
+                             atol=1e-5), "energies differ beyond rtol 1e-5")
+        (dets_k, keep_k), (dets_p, keep_p) = (pp.batch_detection(
+            *c[:4], kernels=k) for c, k in ((cand_k, True), (cand_p, False)))
+        sync_if(on_card)
+        check(torch.equal(keep_k, keep_p),
+              f"K1 keep indices differ at B={cls[0].shape[0]}")
+        check(torch.allclose(dets_k, dets_p, rtol=1e-6, atol=0),
+              "detections differ between the kernel and plain paths")
+        ood_k, ood_p = (pp._gather_survivor_scores(c.ood_all, keep,
+                                                   c.indices)
+                        for c, keep in ((cand_k, keep_k), (cand_p, keep_p)))
+        check(torch.allclose(ood_k, ood_p, rtol=1e-5, atol=1e-5),
+              "OOD scores differ beyond rtol 1e-5")
+    log(f"[9] kernel and plain paths: equal candidates and keep indices on "
+        f"all {n_batches} batches (the last of "
+        f"{batches[-1]['image'].shape[0]}), detections to rtol 1e-6, "
+        "OOD scores to rtol 1e-5")
+
+    # the two pair selections, 2 batches each
+    for method in ("exact", "approx"):
+        m, _ = run(["--topk-method", method, "--max-batches", "2"])
+        check(m["images"] == 2 * batch and all(
+            math.isfinite(v) for v in m.values()), f"{method}: {m}")
+        for b in batches[:2]:
+            cls, box = bench.model(b["image"])
+            cand_k, cand_p = (pp.select_candidates(
+                cls, box, bench.anchors, NUM_CLASSES, 5000, "energy",
+                kernels=k, topk_method=method) for k in (True, False))
+            check(torch.equal(cand_k.indices, cand_p.indices)
+                  and torch.equal(cand_k.classes, cand_p.classes)
+                  and torch.equal(cand_k.logits, cand_p.logits),
+                  f"{method}: candidate ids differ from the plain version")
+        log(f"[9] --topk-method {method}: {m}; candidate ids equal to the "
+            "plain version's on 2 batches")
+
+    # the ground truth as detections scores AP 1.0
+    oracle = {"coco": CocoEvaluator(NUM_CLASSES),
+              "pascal": PascalEvaluator(NUM_CLASSES)}
+    for b in batches:
+        gt = torch.cat([b["bbox"][..., [1, 0, 3, 2]],
+                        torch.ones_like(b["cls"][..., None],
+                                        dtype=torch.float32),
+                        b["cls"][..., None].to(torch.float32)], dim=-1)
+        gt = torch.where((b["cls"] > 0)[..., None], gt, torch.zeros_like(gt))
+        for ev in oracle.values():
+            ev.add_predictions(gt, b)
+    ap = {"coco": oracle["coco"].evaluate()["map"],
+          "pascal": oracle["pascal"].evaluate()["mAP@0.5IOU"]}
+    log(f"[9] ground truth as detections: {ap}; native evaluation core "
+        f"loads: {native.available()}")
+    check(all(abs(v - 1.0) < 1e-12 for v in ap.values()),
+          f"the evaluators score the ground truth {ap}, not AP 1.0")
+
+    # a second, warm pass through run_validation for its times
+    loader = validate.make_val_loader(args, bench.config,
+                                      torch.device(device))
+    _, times = validate.run_validation(bench, loader, CocoEvaluator(
+        NUM_CLASSES), "energy")
+    check(times["batches"] == n_batches, f"run_validation: {times}")
+    return metrics, launches, bench, batches, times
+
+
+def validate_measures(bench, batches, metrics, times):
+    """Phase 9's numbers on the card: images/s, the load / predict /
+    evaluate wall time, the card's idle share over one batch's predict,
+    and K1 (hard) / K2 at the full batch and at the partial last one."""
+    n = sum(b["image"].shape[0] for b in batches)
+    log(f"[9] [{CARD}] validate: {metrics['img_per_sec']} images/s over "
+        f"{n} images (the first call, build and warm-up included); warm "
+        f"run_validation {n / sum(times[k] for k in ('load_s', 'predict_s', 'evaluate_s'))}"
+        f" images/s: load {times['load_s']} s, predict {times['predict_s']}"
+        f" s, evaluate {times['evaluate_s']} s over {times['batches']} "
+        "batches")
+    image = batches[0]["image"]
+    numbers, _, _ = profile_window(lambda: bench(image))
+    log(f"[9] [{CARD}] profile predict B={image.shape[0]}: " + ", ".join(
+        f"{k} {v}" for k, v in numbers.items()))
+    out = {}
+    for b in (batches[0], batches[-1]):
+        cls, box = bench.model(b["image"])
+        cand = pp.select_candidates(cls, box, bench.anchors, NUM_CLASSES,
+                                    5000, "energy")
+        out[cls[0].shape[0]] = kernel_times(cand, cls, (None, None),
+                                            soft=False, tag="[9]")
+    return out
+
+
 def sync_if(on_card):
     if on_card:
         sync()
@@ -1131,12 +1394,16 @@ def main():
                          device="cuda") * 2.0 - 3.0).to(torch.bfloat16)
             for lvl in range(3)], num_classes=c)
         log(f"[3] K2 C={c}: key bit-exact, energy max abs err {err:.3g}")
-    for batch, n in ((BATCH, 5000), (128, 5000), (2, 1001)):
+    for batch, n in ((BATCH, 5000), (128, 5000), (2, 1001),
+                     (VAL_BATCH, 5000), (VAL_IMAGES % VAL_BATCH, 5000)):
         boxes, scores = random_nms_inputs(batch, n, gen)
+        chosen = cuda_nms.device_cluster_size(torch.cuda.current_device(),
+                                              batch, n)
         for soft in (False, True):
             errs = [k1_compare(boxes, scores, soft, cluster=c)
-                    for c in cuda_nms.CLUSTER_SIZES]
-            log(f"[3] K1 [{batch}, {n}] soft={soft}: keep equal at clusters "
+                    for c in (None,) + cuda_nms.CLUSTER_SIZES]
+            log(f"[3] K1 [{batch}, {n}] soft={soft}: keep equal at the "
+                f"wrapper's cluster ({chosen}) and at clusters "
                 f"{cuda_nms.CLUSTER_SIZES}, score max abs err "
                 f"{max(errs):.3g}")
     anchor_boxes = torch.from_numpy(Anchors.from_config(
@@ -1258,6 +1525,20 @@ def main():
         meta_throughput(trainer, batches)
         meta_profile(trainer, batches[-1])
     sync()
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # 9. the offline evaluation entry point on a COCO-layout split
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, pth = os.path.join(tmp, "coco"), os.path.join(tmp, "d0.pth")
+        write_coco_fixture(root)
+        write_reference_pth(pth)
+        metrics, _, bench, batches, times = validate_path(root, pth)
+        validate_measures(bench, batches, metrics, times)
+    sync()
+    log(f"[9] phase 9 took {time.time() - t0:.1f} s")
+    del bench, batches
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
@@ -1290,17 +1571,17 @@ def reset_launches():
         fn.launches = 0
 
 
-def kernel_times(cand, cls, info):
+def kernel_times(cand, cls, info, soft=True, tag="[5]"):
     """Each kernel's time (CUDA events, after warm-up) beside its bound, its
-    plain version and a library call, on the inputs the main path gives
-    it: the candidates ``cand`` of the post-process with the images'
-    (img_scale, img_size) ``info``, and the bf16 class outputs ``cls``.
-    Logs them and returns the JSON fields."""
+    plain version and a library call, on the inputs a path gives it: the
+    candidates ``cand`` of the post-process with the images' (img_scale,
+    img_size) ``info``, and the bf16 class outputs ``cls``; K1 soft or
+    hard. Logs them under ``tag`` and returns the JSON fields."""
     batch = cls[0].shape[0]
     _, scores, offset_boxes = pp.nms_inputs(*cand[:4], *info)
-    nms_kw = dict(max_out=100, iou_threshold=0.3, soft=True)
+    nms_kw = dict(max_out=100, iou_threshold=0.3, soft=soft)
     keep, _ = cuda_nms.batched_nms(offset_boxes, scores, **nms_kw)
-    k1_bound, k1_by = nms_bound_ms(keep, scores.shape[1], soft=True)
+    k1_bound, k1_by = nms_bound_ms(keep, scores.shape[1], soft=soft)
     k1 = dict(
         ms=cuda_ms(lambda: cuda_nms.batched_nms(offset_boxes, scores,
                                                 **nms_kw), 50),
@@ -1319,22 +1600,25 @@ def kernel_times(cand, cls, info):
     # the images run side by side: the one with the most picks sets the time
     picks = int(torch.clamp((keep >= 0).sum(dim=1) + 1, max=100).max())
     dev = torch.cuda.current_device()
-    log(f"[5] K1 soft [{batch}, {scores.shape[1]}]: {k1['ms']:.4f} ms, plain "
+    kind = "soft" if soft else "hard"
+    log(f"{tag} [{CARD}] K1 {kind} [{batch}, {scores.shape[1]}]: "
+        f"{k1['ms']:.4f} ms, plain "
         f"{k1['plain_ms']:.3f} ms, bound {k1_bound:.5f} ms ({k1_by}); "
         f"cluster {cuda_nms.device_cluster_size(dev, *scores.shape)}, "
         f"{k1['ms'] * 1e3 / picks:.3f} us a pick over {picks} picks")
-    nms_cluster_times(offset_boxes, scores, picks, nms_kw)
-    if batch == BATCH:
+    nms_cluster_times(offset_boxes, scores, picks, nms_kw, tag)
+    if batch == BATCH and tag == "[5]":
         # an intermediate batch: the same candidates twice over
         nms_cluster_times(torch.cat([offset_boxes] * 2),
-                          torch.cat([scores] * 2), picks, nms_kw)
-    log(f"[5] K2 B={batch}: {k2['ms']:.4f} ms, plain {k2['plain_ms']:.3f} "
+                          torch.cat([scores] * 2), picks, nms_kw, tag)
+    log(f"{tag} [{CARD}] K2 B={batch}: {k2['ms']:.4f} ms, plain "
+        f"{k2['plain_ms']:.3f} "
         f"ms, logsumexp {k2['library_ms']:.4f} ms, bound {k2_bound:.4f} ms "
         f"({k2_by}), {100 * k2_bound / k2['ms']:.1f} % of it reached")
     return {"K1": k1, "K2": k2}
 
 
-def nms_cluster_times(boxes, scores, picks, nms_kw):
+def nms_cluster_times(boxes, scores, picks, nms_kw, tag="[5]"):
     """K1's time (CUDA events) at the wrapper's cluster size and at each
     forced one, and how many images of these candidates the card holds at
     once at each, over ``picks`` picks."""
@@ -1345,7 +1629,9 @@ def nms_cluster_times(boxes, scores, picks, nms_kw):
         ms = cuda_ms(lambda: cuda_nms.batched_nms(
             boxes, scores, cluster=c, **nms_kw), 50)
         mark = " (the wrapper's choice)" if c == chosen else ""
-        log(f"[5] K1 soft [{batch}, {n}] at cluster {c}{mark}: {ms:.4f} ms, "
+        kind = "soft" if nms_kw["soft"] else "hard"
+        log(f"{tag} [{CARD}] K1 {kind} [{batch}, {n}] at cluster {c}{mark}: "
+            f"{ms:.4f} ms, "
             f"{ms * 1e3 / picks:.3f} us a pick; the card holds "
             f"{cuda_nms.resident_images(dev, n, c)} images at once")
 

@@ -1,24 +1,26 @@
 """On-device letterbox resize + ImageNet normalisation.
 
-Port of ``ood_object_detection_tpu.data.device_preproc
-.batched_letterbox_normalize``. Host workers only decode into fixed-size
-uint8 canvases; the card resamples each canvas by its own scale, fills
-beyond the scaled image, and normalises.
+Port of ``ood_object_detection_tpu.data.device_preproc``
+(``batched_letterbox_normalize`` and ``normalize_uint8``). Host workers
+only decode into fixed-size uint8 canvases; the card resamples each canvas
+by its own scale, fills beyond the scaled image, and normalises.
 
-Each image's whole canvas is resampled, as ``jax.image.scale_and_translate``
-does: bilinear with antialiasing (a triangle kernel widened by 1/scale when
-downscaling), output pixel ``i`` centred on source ``(i + 0.5) / scale -
-0.5``. ``F.interpolate(..., antialias=True, recompute_scale_factor=False)``
-computes that; its output is then cropped or padded to the target size.
-The scale differs per image, so it is a host number and each image is one
-call.
+Each image's canvas is resampled as ``jax.image.scale_and_translate``
+does: bilinear with antialiasing (a triangle kernel widened by 1/scale
+when downscaling), output pixel ``i`` centred on source ``(i + 0.5) /
+scale - 0.5``. The resampled block is exactly the valid region, ``floor
+(side * scale)`` in f32 as the JAX fill boundary is;
+``aten._upsample_bilinear2d_aa`` with that output size and the scale both
+given computes it. (``F.interpolate`` with a scale factor sizes its output
+by the same floor in double, one row or column short where the f32 scale
+rounds below ``target / side``.) The scale differs per image, so it is a
+host number and each image is one call.
 """
 from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 # ImageNet statistics (ood_object_detection_tpu/data/transforms.py:20-21)
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
@@ -50,25 +52,26 @@ def batched_letterbox_normalize(
     dtype = getattr(torch, out_dtype)
     device = canvases.device
     hw = torch.as_tensor(true_hw).to("cpu", torch.float32)
-    scale = torch.minimum(th / hw[:, 0], tw / hw[:, 1])
+    # tensor over tensor: a Python number over a tensor is computed as a
+    # multiply by the reciprocal, one f32 step away from the quotient
+    scale = torch.minimum(torch.full_like(hw[:, 0], th) / hw[:, 0],
+                          torch.full_like(hw[:, 1], tw) / hw[:, 1])
     scaled_h = torch.floor(hw[:, 0] * scale)
     scaled_w = torch.floor(hw[:, 1] * scale)
 
-    fill = torch.tensor(fill_color, dtype=torch.float32,
-                        device=device).to(dtype)[:, None, None]
-    rows = torch.arange(th, dtype=torch.float32, device=device)[:, None]
-    cols = torch.arange(tw, dtype=torch.float32, device=device)[None, :]
-    images = torch.empty((canvases.shape[0], th, tw, 3), dtype=dtype,
-                         device=device)
+    fill = torch.tensor(fill_color, dtype=torch.float32).to(dtype)
+    images = fill.to(device).expand(canvases.shape[0], th, tw, 3).clone()
     for i in range(canvases.shape[0]):
+        # only the scaled image's rows and columns are resampled (every
+        # source centre then lies inside the canvas); the rest keeps the fill
+        sh, sw = int(scaled_h[i]), int(scaled_w[i])
+        if sh == 0 or sw == 0:
+            continue
         img = canvases[i].permute(2, 0, 1)[None].to(torch.float32)
-        out = F.interpolate(img, scale_factor=float(scale[i]),
-                            mode="bilinear", align_corners=False,
-                            antialias=True, recompute_scale_factor=False)[0]
-        out = out[:, :th, :tw]
-        out = F.pad(out, (0, tw - out.shape[2], 0, th - out.shape[1]))
-        valid = (rows < float(scaled_h[i])) & (cols < float(scaled_w[i]))
-        images[i] = torch.where(valid, out.to(dtype), fill).permute(1, 2, 0)
+        s = float(scale[i])
+        out = torch.ops.aten._upsample_bilinear2d_aa(img, [sh, sw], False,
+                                                     s, s)[0]
+        images[i, :sh, :sw] = out.to(dtype).permute(1, 2, 0)
 
     mean_t = (torch.tensor(mean, dtype=torch.float32) * 255.0).to(dtype)
     std_inv = (1.0 / (torch.tensor(std, dtype=torch.float32) * 255.0)
@@ -79,3 +82,14 @@ def batched_letterbox_normalize(
         "img_scale": (1.0 / scale)[:, None].to(device),
         "img_size": hw.flip(-1).to(device),
     }
+
+
+def normalize_uint8(images: torch.Tensor,
+                    mean: Sequence[float] = IMAGENET_DEFAULT_MEAN,
+                    std: Sequence[float] = IMAGENET_DEFAULT_STD
+                    ) -> torch.Tensor:
+    """uint8 NHWC -> normalised f32 on the images' device."""
+    mean_t = torch.tensor(mean, dtype=torch.float32) * 255.0
+    std_t = torch.tensor(std, dtype=torch.float32) * 255.0
+    return (images.to(torch.float32) - mean_t.to(images.device)) \
+        / std_t.to(images.device)

@@ -1,12 +1,19 @@
 """Batched fixed-shape detection post-processing.
 
-Port of the ``per_anchor`` path of
-``ood_object_detection_tpu.ops.post_process``: per-level head outputs ->
-per-anchor (max logit, class) and OOD score -> top-k anchors -> decode
-against anchors rebuilt by index arithmetic -> clip -> strict score filter
--> class-offset (soft-)NMS -> ``[B, max_det, 6]`` detections
-``[x1, y1, x2, y2, score, class + 1]`` and ``[B, max_det]`` OOD scores.
-Padding rows are 0.
+Port of ``ood_object_detection_tpu.ops.post_process``: per-level head
+outputs -> top-k candidates -> decode against anchors rebuilt by index
+arithmetic -> clip -> strict score filter -> class-offset (soft-)NMS ->
+``[B, max_det, 6]`` detections ``[x1, y1, x2, y2, score, class + 1]`` and
+``[B, max_det]`` OOD scores. Padding rows are 0.
+
+Three selections (``topk_method``), as in the JAX package:
+  - ``per_anchor``: each anchor's best class (max, argmax), then the top
+    anchors;
+  - ``exact``: the top (anchor, class) pairs in two stages: the top
+    anchors by their max logit, then the top pairs among those anchors'
+    class rows (``_exact_topk_pairs``);
+  - ``approx``: the top pairs of the flat [B, A*C] logits (the JAX
+    package's ``approx_max_k``, exact on the CPU; exact here).
 
 Two hand-written kernels carry it on the card: K2 (``ops/cuda_reduce.py``)
 for the per-anchor key + energy pass over bf16 logits, K1
@@ -15,10 +22,10 @@ for the per-anchor key + energy pass over bf16 logits, K1
 instead, on any device, so that a run on the card can hold the two
 against each other.
 
-Selection is bit-exact with the JAX package: its top-k (``approx_max_k``,
-exact on the CPU) returns equal values lowest index first, which
-``torch.topk`` does not promise; ``_topk`` sorts stably instead. The
-``exact`` and ``approx`` top-k modes are not ported yet.
+Selection is bit-exact with the JAX package: its top-k (``lax.top_k``,
+and ``approx_max_k``, exact on the CPU) returns equal values lowest index
+first, which ``torch.topk`` does not promise; ``_topk`` sorts stably
+instead, in every selection.
 """
 from __future__ import annotations
 
@@ -37,6 +44,9 @@ MIN_SCORE = 0.01   # reference score pre-filter, strict (scores > MIN_SCORE)
 # NMS coordinate guard: far above any image coordinate, far below f32 inf,
 # so a diverged head's inf box cannot make the class offset 0 * inf = NaN
 MAX_COORD = 1e7
+
+
+TOPK_METHODS = ("per_anchor", "exact", "approx")
 
 
 def _check_ood_method(ood_method: Optional[str]) -> None:
@@ -93,6 +103,103 @@ def _unpack_f32_key(vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return bits16.view(torch.bfloat16).to(torch.float32), classes
 
 
+def _packed(cls_outputs: List[torch.Tensor], num_classes: int) -> bool:
+    """bf16 logits of at most 256 classes take the packed-key path (K2)."""
+    return cls_outputs[0].dtype == torch.bfloat16 and num_classes <= 256
+
+
+def _anchor_max_and_ood(cls_outputs: List[torch.Tensor], num_classes: int,
+                        ood_method: Optional[str], kernels: bool = True):
+    """(each anchor's max logit [B, A_tot], its OOD score [B, A_tot] f32 or
+    None). On the packed-key path both come from K2 (``kernels=False``: its
+    plain version): the key carries the anchor's bf16 max exactly, so
+    max_logit is the unpacked key and msp = max_c sigmoid(l_c) =
+    sigmoid(max_c l_c); energy is the kernel's. Other logits take the
+    two-reduce path."""
+    if not _packed(cls_outputs, num_classes):
+        max_all, _, ood_all = _per_anchor_reduce(cls_outputs, num_classes,
+                                                 ood_method)
+        return max_all, ood_all
+    key_all, ood_all = _packed_f32_key_reduce(cls_outputs, num_classes,
+                                              ood_method, kernels=kernels)
+    max_all, _ = _unpack_f32_key(key_all)
+    if ood_method == "max_logit":
+        ood_all = max_all
+    elif ood_method == "msp":
+        ood_all = torch.sigmoid(max_all)
+    return max_all, ood_all
+
+
+def _gather_class_rows(cls_outputs: List[torch.Tensor], num_classes: int,
+                       anchor_ids: torch.Tensor) -> torch.Tensor:
+    """[B, K, C] f32 class-logit rows of K global anchor ids, gathered level
+    by level from anchor-major [B, N_l, C] views."""
+    b, k = anchor_ids.shape
+    out = torch.zeros((b, k, num_classes), dtype=torch.float32,
+                      device=anchor_ids.device)
+    offset = 0
+    for lvl in cls_outputs:
+        n = lvl.shape[1] * lvl.shape[2] * (lvl.shape[3] // num_classes)
+        view = lvl.reshape(b, n, num_classes)
+        local = torch.clamp(anchor_ids - offset, 0, n - 1)
+        rows = torch.gather(view, 1,
+                            local[..., None].expand(-1, -1, num_classes))
+        in_level = (anchor_ids >= offset) & (anchor_ids < offset + n)
+        out = torch.where(in_level[..., None], rows.to(torch.float32), out)
+        offset += n
+    return out
+
+
+def _exact_topk_pairs(cls_outputs: List[torch.Tensor], num_classes: int,
+                      k: int, ood_method: Optional[str] = None,
+                      kernels: bool = True):
+    """The top k (anchor, class) pairs over all levels, in two stages, as
+    the JAX package's ``_exact_topk_pairs``: the top min(k, A) anchors by
+    their max logit, then the top k of those anchors' k1 * C pairs (any
+    pair of the global top k lies on such an anchor). Both sorts are
+    stable, so ties go lowest anchor, then lowest pair index first.
+
+    Stage 1 on bf16 logits reads K2's packed keys
+    (``_anchor_max_and_ood``); sorting the unpacked maxima, not the keys,
+    keeps the key's class bits out of the tie order.
+
+    Returns (vals [B, k] f32 descending, anchor ids [B, k], classes [B, k]
+    int32, per-anchor OOD [B, A_tot] or None).
+    """
+    batch = cls_outputs[0].shape[0]
+    max_all, ood_all = _anchor_max_and_ood(cls_outputs, num_classes,
+                                           ood_method, kernels)
+    a_tot = max_all.shape[1]
+    k = min(k, a_tot * num_classes)
+    k1 = min(k, a_tot)
+    _, top_anchors = _topk(max_all, k1)
+    rows = _gather_class_rows(cls_outputs, num_classes, top_anchors)
+    vals, pos = _topk(rows.reshape(batch, k1 * num_classes), k)
+    classes = (pos % num_classes).to(torch.int32)
+    anchor_ids = torch.gather(top_anchors, 1, pos // num_classes)
+    return vals, anchor_ids, classes, ood_all
+
+
+def _approx_topk_pairs(cls_outputs: List[torch.Tensor], num_classes: int,
+                       k: int, ood_method: Optional[str] = None,
+                       kernels: bool = True):
+    """The top k (anchor, class) pairs of the flat [B, A*C] logits by one
+    stable sort, lowest flat index first on ties: the JAX package's
+    ``approx_max_k`` path, which is exact on the CPU for k below the row
+    length. The OOD scores come from ``_anchor_max_and_ood`` (K2 on bf16
+    logits).
+
+    Returns (logits [B, k] in the input dtype, anchor ids [B, k], classes
+    [B, k] int32, per-anchor OOD [B, A_tot] or None)."""
+    batch = cls_outputs[0].shape[0]
+    flat = torch.cat([lvl.reshape(batch, -1) for lvl in cls_outputs], dim=1)
+    vals, top = _topk(flat, min(k, flat.shape[1]))
+    ood_all = None if ood_method is None else _anchor_max_and_ood(
+        cls_outputs, num_classes, ood_method, kernels)[1]
+    return (vals, top // num_classes, (top % num_classes).to(torch.int32),
+            ood_all)
+
+
 def _gather_survivor_scores(ood_all: torch.Tensor, keep_idx: torch.Tensor,
                             indices: torch.Tensor) -> torch.Tensor:
     """Per-anchor scores [B, A_tot] of the NMS survivors (keep_idx ->
@@ -126,15 +233,30 @@ def select_candidates(cls_outputs: List[torch.Tensor],
                       box_outputs: List[torch.Tensor], anchors: Anchors,
                       num_classes: int, max_detection_points: int,
                       ood_method: Optional[str] = None,
-                      kernels: bool = True) -> Candidates:
-    """Per-anchor reduce -> top-k anchors -> their boxes and anchors.
+                      kernels: bool = True,
+                      topk_method: str = "per_anchor") -> Candidates:
+    """Top-k selection (``topk_method``) -> the candidates' boxes and
+    anchors, with the per-anchor OOD scores when ``ood_method`` is set.
 
-    bf16 logits (and num_classes <= 256) take the packed-key path: one
-    pass (K2) gives each anchor one exact f32 key carrying its max logit
-    and class, plus the energy when it is asked for. Other logits take the
-    two-reduce path (max, argmax, OOD score).
+    ``per_anchor`` on bf16 logits (and num_classes <= 256) takes the
+    packed-key path: one pass (K2) gives each anchor one exact f32 key
+    carrying its max logit and class, plus the energy when it is asked
+    for; other logits take the two-reduce path (max, argmax, OOD score).
+    ``exact`` and ``approx`` select (anchor, class) pairs
+    (``_exact_topk_pairs``, ``_approx_topk_pairs``) and return the OOD
+    scores of every method in ``ood_all``.
     """
-    if cls_outputs[0].dtype == torch.bfloat16 and num_classes <= 256:
+    if topk_method not in TOPK_METHODS:
+        raise ValueError(f"unknown topk_method {topk_method!r}; expected one "
+                         f"of {TOPK_METHODS}")
+    key_all = None
+    if topk_method != "per_anchor":
+        select = (_exact_topk_pairs if topk_method == "exact"
+                  else _approx_topk_pairs)
+        logits, indices, classes, ood_all = select(
+            cls_outputs, num_classes, max_detection_points, ood_method,
+            kernels=kernels)
+    elif _packed(cls_outputs, num_classes):
         key_all, ood_all = _packed_f32_key_reduce(
             cls_outputs, num_classes, ood_method, kernels=kernels)
         k = min(max_detection_points, key_all.shape[1])
@@ -146,7 +268,6 @@ def select_candidates(cls_outputs: List[torch.Tensor],
         k = min(max_detection_points, max_all.shape[1])
         logits, indices = _topk(max_all, k)
         classes = torch.gather(arg_all, 1, indices)
-        key_all = None
     return Candidates(logits[..., None], _gather_boxes(box_outputs, indices),
                       anchors.boxes_for_indices(indices), classes, indices,
                       key_all, ood_all)
@@ -232,16 +353,14 @@ def generate_detections(cls_outputs: List[torch.Tensor],
     None).
 
     cls_outputs / box_outputs: per-level [B, H, W, A*C] / [B, H, W, A*4]
-    (NHWC). Each anchor contributes its best class (``select_candidates``);
-    on the packed-key path max_logit and msp come back from the
+    (NHWC). ``topk_method`` selects the candidates (``select_candidates``);
+    on the per_anchor packed-key path max_logit and msp come back from the
     survivors' keys.
     """
     _check_ood_method(ood_method)
-    if topk_method != "per_anchor":
-        raise NotImplementedError(
-            f"topk_method {topk_method!r} is not ported yet (per_anchor only)")
     cand = select_candidates(cls_outputs, box_outputs, anchors, num_classes,
-                             max_detection_points, ood_method)
+                             max_detection_points, ood_method,
+                             topk_method=topk_method)
     detections, keep_idx = batch_detection(
         cand.logits, cand.box_codes, cand.anchors, cand.classes,
         img_scale=img_scale, img_size=img_size,

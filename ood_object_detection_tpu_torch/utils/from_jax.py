@@ -95,14 +95,18 @@ def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict:
 
 
 def _jax_tensors(model: nn.Module, variables: Dict[str, Any],
-                 collections: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
-    """{state_dict name: tensor} of every model tensor that maps into one of
-    ``collections``, from the JAX tree. Strict: raises if such a tensor
-    has no variable, a variable of those collections is not consumed, or a
-    shape disagrees."""
+                 collections: Tuple[str, ...], strict: bool = True
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, list]]:
+    """({state_dict name: tensor} of every model tensor that maps into one
+    of ``collections``, from the JAX tree; a report of the state_dict names
+    'loaded', the model tensors 'missing' a variable and the variables
+    'unexpected': not consumed, or of another shape). With ``strict`` a
+    missing, unexpected or misshapen variable raises; without, it is only
+    reported and the model keeps its tensor."""
     flat = {(coll,) + key: val for coll in collections
             for key, val in _flatten(variables.get(coll, {})).items()}
-    tensors_out, used, missing = {}, set(), []
+    tensors_out, used = {}, set()
+    report: Dict[str, list] = {"loaded": [], "missing": [], "unexpected": []}
     for module_name, module in model.named_modules():
         is_norm = isinstance(module, _NORMS)
         tensors = list(module.named_parameters(recurse=False)) + \
@@ -115,28 +119,39 @@ def _jax_tensors(model: nn.Module, variables: Dict[str, Any],
             collection, flax_leaf = target
             key = (collection,) + _flax_module_path(module_name) + (flax_leaf,)
             if key not in flat:
-                missing.append(f"{name} <- {'/'.join(key)}")
+                report["missing"].append(f"{name} <- {'/'.join(key)}")
                 continue
+            used.add(key)
             arr = _to_torch_layout(np.array(flat[key], np.float32), flax_leaf)
             if tuple(arr.shape) != tuple(tensor.shape):
-                raise ValueError(f"{name}: variable {'/'.join(key)} has shape "
-                                 f"{arr.shape}, the model {tuple(tensor.shape)}")
+                what = (f"{name}: variable {'/'.join(key)} has shape "
+                        f"{arr.shape}, the model {tuple(tensor.shape)}")
+                if strict:
+                    raise ValueError(what)
+                report["unexpected"].append(what)
+                continue
             tensors_out[name] = torch.from_numpy(np.ascontiguousarray(arr))
-            used.add(key)
-    unexpected = sorted("/".join(k) for k in set(flat) - used)
-    if missing or unexpected:
+            report["loaded"].append(name)
+    report["unexpected"] += sorted("/".join(k) for k in set(flat) - used)
+    if strict and (report["missing"] or report["unexpected"]):
         raise ValueError(f"variables do not match the model: missing "
-                         f"{missing[:10]}, unexpected {unexpected[:10]}")
-    return tensors_out
+                         f"{report['missing'][:10]}, unexpected "
+                         f"{report['unexpected'][:10]}")
+    return tensors_out, report
 
 
-def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
+def load_jax_variables(model: nn.Module, variables: Dict[str, Any],
+                       strict: bool = True) -> Dict[str, list]:
     """Load ``{"params": tree, "batch_stats": tree}`` into ``model`` in
-    place. Strict: raises if a model tensor has no variable, a variable is
-    not consumed, or a shape disagrees."""
+    place and return the report of ``_jax_tensors``. Strict: raises if a
+    model tensor has no variable, a variable is not consumed, or a shape
+    disagrees; with ``strict=False`` those are only reported."""
+    tensors, report = _jax_tensors(model, variables,
+                                   ("params", "batch_stats"), strict)
     state = model.state_dict()
-    state.update(_jax_tensors(model, variables, ("params", "batch_stats")))
+    state.update(tensors)
     model.load_state_dict(state, strict=True)
+    return report
 
 
 def load_jax_ema(ema_params: Dict[str, torch.Tensor], model: nn.Module,
@@ -152,7 +167,7 @@ def load_jax_ema(ema_params: Dict[str, torch.Tensor], model: nn.Module,
     (optax's momentum trace, torch's momentum buffer), so a port state
     made by ``create_train_state`` matches a fresh JAX state.
     """
-    tensors = _jax_tensors(model, {"params": jax_ema_params}, ("params",))
+    tensors, _ = _jax_tensors(model, {"params": jax_ema_params}, ("params",))
     if sorted(tensors) != sorted(ema_params):
         raise ValueError("the EMA copy does not hold the model's parameters")
     with torch.no_grad():

@@ -1,6 +1,7 @@
 """The measuring helpers of chip_smoke.py, on the CPU: the profiler
 window's device busy time is the union of the device intervals, and
-K1's bound counts the picks this run's data makes."""
+K1's bound counts the picks this run's data makes; and the drives of its
+meta (phase 8) and validate (phase 9) paths on the CPU at 128 px."""
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
@@ -118,3 +119,36 @@ def test_meta_path_drive_runs_on_the_cpu():
     # task class (0-based) among their anchor labels
     assert not bool((batches[0]["qry_gt_cls"][-1] > 0).any())
     assert bool((batches[0]["proj_cls"] == batches[0]["task_cls"]).any())
+
+
+def test_validate_path_drive_runs_on_the_cpu(tmp_path):
+    """Phase 9's drive (validate_path) on the CPU at 128 px, batch 2, over
+    its own COCO-layout fixture of 5 images and its reference-named .pth:
+    every check of the phase that does not need the card passes (61 of 61
+    images there, 5 of 5 here, the partial last batch included; finite
+    metrics; kernel and plain paths alike; exact and approx; the ground
+    truth at AP 1.0); the .pth loads strictly; the plain versions launch
+    nothing."""
+    from ood_object_detection_tpu_torch.data.parsers import CocoParser
+    from ood_object_detection_tpu_torch.utils.checkpoint_convert import (
+        load_pytorch_checkpoint)
+    root, pth = str(tmp_path / "coco"), str(tmp_path / "d0.pth")
+    chip_smoke.write_coco_fixture(root, n=5)
+    chip_smoke.write_reference_pth(pth)
+    parser = CocoParser(f"{root}/annotations/instances_val2017.json")
+    assert len(parser) == 5 and parser.max_label == 3
+    assert {(i["height"], i["width"]) for i in parser.img_infos} == set(
+        chip_smoke.COCO_SIZES)
+    model = chip_smoke.create_model("efficientdet_d0", num_classes=90,
+                                    device="cpu")
+    report = load_pytorch_checkpoint(pth, model, strict=True)
+    assert len(report["loaded"]) == len(model.state_dict()) - sum(
+        k.endswith("num_batches_tracked") for k in model.state_dict())
+    bias = model.class_net.predict_bias().detach()
+    assert float(bias[0]) > float(bias[3]) + 1.9     # classes 1-3 raised
+    with torch.no_grad():
+        metrics, launches, _, batches, times = chip_smoke.validate_path(
+            root, pth, device="cpu", image_size=128, batch=2)
+    assert metrics["images"] == 5 and times["batches"] == 3
+    assert [b["image"].shape[0] for b in batches] == [2, 2, 1]
+    assert set(launches.values()) == {0}

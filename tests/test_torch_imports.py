@@ -34,6 +34,19 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.meta.episode",
     "ood_object_detection_tpu_torch.data.dataset",
     "ood_object_detection_tpu_torch.data.episodic",
+    "ood_object_detection_tpu_torch.data.parsers",
+    "ood_object_detection_tpu_torch.data.transforms",
+    "ood_object_detection_tpu_torch.data.input_config",
+    "ood_object_detection_tpu_torch.data.dataset_factory",
+    "ood_object_detection_tpu_torch.evaluation",
+    "ood_object_detection_tpu_torch.evaluation.metrics",
+    "ood_object_detection_tpu_torch.evaluation.object_detection_evaluation",
+    "ood_object_detection_tpu_torch.evaluation.native",
+    "ood_object_detection_tpu_torch.evaluation.coco_eval",
+    "ood_object_detection_tpu_torch.evaluation.masks",
+    "ood_object_detection_tpu_torch.evaluation.evaluators",
+    "ood_object_detection_tpu_torch.utils.checkpoint_convert",
+    "ood_object_detection_tpu_torch.validate",
 )
 
 
@@ -70,6 +83,14 @@ def test_importing_the_port_loads_no_jax():
     assert "ood_object_detection_tpu_torch.ops.cuda_nms" in loaded
     assert "ood_object_detection_tpu_torch.ops.cuda_labeler" in loaded
     assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_the_loader_without_device_needs_cuda(monkeypatch):
+    from ood_object_detection_tpu_torch.data.dataset import (
+        PrefetchLoader, SyntheticDetectionDataset)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrefetchLoader(SyntheticDetectionDataset(num_images=2), 2)
 
 
 @pytest.mark.parametrize("bench_task", ["predict", "train"])

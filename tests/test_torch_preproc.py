@@ -1,5 +1,10 @@
 """The port's on-device letterbox + normalise vs the JAX package's
-``batched_letterbox_normalize``, downscaling and upscaling."""
+``batched_letterbox_normalize``, downscaling and upscaling, at 128 px and
+at the target sizes where a resample sized by ``floor(side * scale)``
+comes out a row or column short (300 x 400 -> 512, 200 x 160 -> 96 x 128)
+and where ``target * reciprocal(side)`` differs from ``target / side`` by
+one f32 step (a side of 100 at 640). Images to atol 1e-4, ``img_scale``
+and ``img_size`` bit-equal."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,22 +19,31 @@ from ood_object_detection_tpu_torch.data.device_preproc import (
 )
 
 CASES = {
-    # canvas (H, W), true (h, w) per image: every scale < 1, then > 1
+    # canvas (H, W), true (h, w) per image[, target (H, W), 128 x 128 if
+    # not given]: every scale < 1, then > 1
     "downscale": ((150, 170), [[150, 170], [101, 133]]),
     "upscale": ((90, 100), [[60, 90], [90, 47]]),
+    # tight canvases whose f32 scale rounds below target / side
+    "tight_300x400_to_512": ((300, 400), [[300, 400], [300, 400]],
+                             (512, 512)),
+    "tight_200x160_to_96x128": ((200, 160), [[200, 160], [150, 160]],
+                                (96, 128)),
+    # 640 / 100 is not 640 * (1 / 100) in f32
+    "side_100_to_640": ((100, 100), [[100, 80], [100, 100]], (640, 640)),
 }
 
 
 def _run(case, out_dtype):
-    (ch, cw), true_hw = CASES[case]
+    (ch, cw), true_hw, *target = CASES[case]
+    target = target[0] if target else (128, 128)
     rng = np.random.default_rng(len(case))
     canvases = rng.integers(0, 256, (2, ch, cw, 3), dtype=np.uint8)
     true_hw = np.array(true_hw, np.int32)
     ours = batched_letterbox_normalize(
         torch.from_numpy(canvases), torch.from_numpy(true_hw),
-        target_hw=(128, 128), out_dtype=out_dtype)
+        target_hw=target, out_dtype=out_dtype)
     ref = jax_letterbox(jnp.asarray(canvases), jnp.asarray(true_hw),
-                        target_hw=(128, 128), out_dtype=out_dtype)
+                        target_hw=target, out_dtype=out_dtype)
     return ours, ref
 
 
