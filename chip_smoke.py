@@ -16,7 +16,13 @@ meta path, phase 8, its meta model):
   - validate (hard NMS, energy OOD, batch 8): JPEGs of a COCO-layout split
     -> PIL decode + letterbox on host threads -> pinned copy to the card
     -> normalise -> forward -> K2 -> top-k -> K1 -> the evaluator thread
-    -> mAP.
+    -> mAP;
+  - the two training CLIs (f32, as their model configs say): pretrain
+    (loader or category stream -> the train step's K3 -> K4 -> val loss
+    and the EMA model's detections through K1 -> mAP -> torch
+    checkpoints, resumed) and the meta driver (episodes built on a
+    prefetch thread, K3 -> K4 -> phase A, phase B -> the adapted head's
+    detections and OOD scores through K1).
 
 Phases, each synchronised so that a fault shows where it happened:
   1. the card's name and power limit (nvidia-smi);
@@ -83,6 +89,31 @@ Phases, each synchronised so that a fault shows where it happened:
      and PASCAL evaluators at AP 1.0 on the ground truth as detections;
      then load / predict / evaluate wall time, images/s, the card's idle
      share over one batch and K1 (hard) / K2 at batch 8 and 5.
+ 10. the pretrain CLI (pretrain_path): ``train.pretrain.main`` at D0@512,
+     90 classes, batch 32, synthetic data, 4 loader threads: 20 steps,
+     validation of 2 batches with --eval-map every 10 (a torch.profiler
+     trace of steps 10-15), then --resume to step 24, then a 6-step
+     --stream run; finite logged losses, val_mAP and the per-category
+     dumps at each validation, the checkpoint restoring the final state
+     bit for bit, "resumed from step 20", K3 / K4 once a train step and a
+     val batch and K1 once a val batch in each run; then img_per_sec, the
+     median step by CUDA events around the CLI's step function
+     (timed_train_steps), the card's idle share over the traced
+     steps, the peak memory, and on a val batch K3 / K4 and K1 against
+     their plain versions and timed (pretrain_kernels);
+ 11. the meta training CLI (meta_driver_path): ``meta.train_driver.main``
+     at its defaults (640 / 256 px, 1-way, 25 supports, 25 + 6 queries,
+     meta batch 4), 4 phase-A iterations of 12, validation from iteration
+     6 with --eval-map and --eval-ood; both phases logged, final_iter 12,
+     ood_auroc_gt in [0, 1], the saved meta_params loading into a fresh
+     trainer bit for bit, K3 / K4 once an episode built and K1 once a
+     detections / OOD call; then episodes/s by phase, of that drive
+     (its phase-B blocks are validation episodes) and of 12 training
+     iterations with no validation (meta_driver_rate), the peak memory,
+     and K1 / K3 / K4 on the last episode against their plain versions
+     and timed.
+Phases 10 and 11 run with PyTorch's default cuDNN TF32 (the earlier
+phases turn it off), as a user runs the CLIs.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
 K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
 episode's query labels through the kernels against the plain ones, and
@@ -107,7 +138,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -117,16 +150,19 @@ from torch.profiler import ProfilerActivity, profile
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
 from ood_object_detection_tpu_torch import validate
-from ood_object_detection_tpu_torch.data.episodic import EpisodeBuilder
+from ood_object_detection_tpu_torch.data.episodic import (
+    EpisodeBuilder, EpisodicDataset, SyntheticEpisodeSource)
 from ood_object_detection_tpu_torch.evaluation import (CocoEvaluator,
                                                        PascalEvaluator,
                                                        native)
 from ood_object_detection_tpu_torch.config import (
     default_detection_train_config, get_efficientdet_config)
-from ood_object_detection_tpu_torch.factory import create_model
+from ood_object_detection_tpu_torch.factory import (create_model,
+                                                    create_model_from_config)
 from ood_object_detection_tpu_torch.meta import (MetaConfig, MetaTrainer,
                                                  ProjectionNet)
 from ood_object_detection_tpu_torch.meta import episode as mep
+from ood_object_detection_tpu_torch.meta import train_driver
 from ood_object_detection_tpu_torch.meta.inner_loop import (class_head,
                                                             inner_adapt)
 from ood_object_detection_tpu_torch.ops import (cuda_build, cuda_labeler,
@@ -138,11 +174,13 @@ from ood_object_detection_tpu_torch.ops.losses import detection_loss_nhwc
 from ood_object_detection_tpu_torch.ops.nms import batched_nms_plain
 from ood_object_detection_tpu_torch.ops.target_assigner import (
     batch_label_anchors)
-from ood_object_detection_tpu_torch.train import (create_train_state,
-                                                  make_train_step)
+from ood_object_detection_tpu_torch.train import (CheckpointManager,
+                                                  create_train_state,
+                                                  make_train_step, pretrain)
+from ood_object_detection_tpu_torch.train import train_state as train_state_mod
 from ood_object_detection_tpu_torch.train.train_state import (
     apply_gradients, detection_loss)
-from ood_object_detection_tpu_torch.utils import from_jax
+from ood_object_detection_tpu_torch.utils import StepTimer, from_jax
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, and the f32
 # rate outside the tensor cores. The data sheet's 67 TFLOP/s counts a
@@ -913,10 +951,7 @@ def meta_path(trainer, builder, colors, gen, episodes=META_EPISODES):
     dets = trainer.episode_detections(batch)
     ood_dets, det_ood, gt_ood, gt_valid = trainer.episode_ood_scores(batch)
     sync_if(on_card)
-    launches = {"K1": cuda_nms.batched_nms.launches,
-                "K2": cuda_reduce.key_energy_reduce.launches,
-                "K3": cuda_labeler.batch_match.launches,
-                "K4": cuda_labeler.batch_codes_targets.launches}
+    launches = launch_counts()
     log(f"[8] meta path: {len(batches)} episodes ({episodes[0]} phase A), "
         f"meta steps after episodes {steps}, launches {launches}")
     for i, m in enumerate(metrics):
@@ -959,7 +994,7 @@ def meta_path(trainer, builder, colors, gen, episodes=META_EPISODES):
     return batches, launches, dets
 
 
-def meta_plain_compare(trainer, batch):
+def meta_plain_compare(trainer, batch, tag="[8]"):
     """The adapted head's outputs on ``batch`` through K1 and through its
     plain version: keep indices equal, detections to 1e-4. Returns (the
     candidates, the scores' max abs error)."""
@@ -972,22 +1007,21 @@ def meta_plain_compare(trainer, batch):
     dets_k, keep_k = pp.batch_detection(*cand[:4], kernels=True, **kw)
     dets_p, keep_p = pp.batch_detection(*cand[:4], kernels=False, **kw)
     sync()
-    check(torch.equal(keep_k, keep_p), "meta path: keep indices differ")
+    check(torch.equal(keep_k, keep_p), f"{tag} keep indices differ")
     check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
-          "meta path: kernel and plain detections differ")
+          f"{tag} kernel and plain detections differ")
     err = float((dets_k[..., 4] - dets_p[..., 4]).abs().max())
-    log(f"[8] kernel and plain detections equal on the meta path "
+    log(f"{tag} kernel and plain detections equal on the meta path "
         f"({int((keep_k >= 0).sum())} kept), score max abs err {err:.3g}")
     return cand, err
 
 
-def meta_kernel_times(trainer, batch, cand, anchor_boxes):
-    """K1 at the meta path's candidates (hard NMS, 30 an image) and K3 / K4
-    on an episode's query ground truth at 640 px: CUDA-event times beside
-    their bounds and plain versions."""
-    mc = trainer.meta_cfg
-    _, scores, offset_boxes = pp.nms_inputs(*cand[:4])
-    kw = dict(max_out=mc.max_dets, iou_threshold=mc.nms_thresh, soft=False)
+def nms_times(cand, max_out, iou_threshold, tag, info=()):
+    """K1 (hard NMS, ``max_out`` an image) at a path's candidates
+    (``info``: the images' (img_scale, img_size), or none): its time by
+    CUDA events beside its bound and its plain version."""
+    _, scores, offset_boxes = pp.nms_inputs(*cand[:4], *info)
+    kw = dict(max_out=max_out, iou_threshold=iou_threshold, soft=False)
     keep, _ = cuda_nms.batched_nms(offset_boxes, scores, **kw)
     bound, by = nms_bound_ms(keep, scores.shape[1], soft=False)
     k1 = dict(ms=cuda_ms(lambda: cuda_nms.batched_nms(offset_boxes, scores,
@@ -995,15 +1029,24 @@ def meta_kernel_times(trainer, batch, cand, anchor_boxes):
               plain_ms=cuda_ms(lambda: batched_nms_plain(offset_boxes, scores,
                                                          **kw), 5),
               bound_ms=bound, bound_by=by, library_ms=None)
-    picks = int(torch.clamp((keep >= 0).sum(dim=1) + 1, max=mc.max_dets).max())
+    picks = int(torch.clamp((keep >= 0).sum(dim=1) + 1, max=max_out).max())
     dev = torch.cuda.current_device()
-    log(f"[8] [{CARD}] K1 hard [{scores.shape[0]}, {scores.shape[1]}] -> "
-        f"{mc.max_dets}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} ms, "
+    log(f"{tag} [{CARD}] K1 hard [{scores.shape[0]}, {scores.shape[1]}] -> "
+        f"{max_out}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} ms, "
         f"bound {bound:.5f} ms ({by}); cluster "
         f"{cuda_nms.device_cluster_size(dev, *scores.shape)}, "
         f"{k1['ms'] * 1e3 / picks:.3f} us a pick over {picks} picks")
+    return k1
+
+
+def meta_kernel_times(trainer, batch, cand, anchor_boxes, tag="[8]"):
+    """K1 at the meta path's candidates (hard NMS, 30 an image) and K3 / K4
+    on an episode's query ground truth at 640 px: CUDA-event times beside
+    their bounds and plain versions."""
+    mc = trainer.meta_cfg
+    k1 = nms_times(cand, mc.max_dets, mc.nms_thresh, tag)
     t = label_kernel_times(anchor_boxes, batch["qry_gt_bbox"],
-                           batch["qry_gt_cls"], tag=f"[8] [{CARD}]")
+                           batch["qry_gt_cls"], tag=f"{tag} [{CARD}]")
     return {"K1": k1, **t}
 
 
@@ -1333,6 +1376,434 @@ def validate_measures(bench, batches, metrics, times):
     return out
 
 
+def json_lines(text):
+    """The JSON objects among a driver's printed lines."""
+    out = []
+    for line in text.splitlines():
+        try:
+            out.append(json.loads(line))
+        except ValueError:
+            continue
+    return out
+
+
+def run_driver(main_fn, argv, tag, **kw):
+    """``main_fn(argv, **kw)`` with its printed lines captured and logged
+    under ``tag`` (so that this script's stdout keeps its own JSON lines
+    only). Returns (what main returned, its printed text, its JSON
+    lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main_fn(argv, **kw)
+    text = out.getvalue()
+    for line in text.strip().splitlines():
+        log(f"{tag} {line}")
+    return result, text, json_lines(text)
+
+
+def launch_counts():
+    return {"K1": cuda_nms.batched_nms.launches,
+            "K2": cuda_reduce.key_energy_reduce.launches,
+            "K3": cuda_labeler.batch_match.launches,
+            "K4": cuda_labeler.batch_codes_targets.launches}
+
+
+def states_equal(a, b):
+    """Whether two TrainStates hold the same step, parameters, BatchNorm
+    statistics, EMA and optimizer state, bit for bit."""
+    if a.step != b.step:
+        return False
+    for x, y in zip(a.model.state_dict().values(),
+                    b.model.state_dict().values()):
+        if not torch.equal(x, y):
+            return False
+    if any(not torch.equal(v, b.ema_params[n])
+           for n, v in a.ema_params.items()):
+        return False
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        if sa.keys() != sb.keys() or any(not torch.equal(sa[k], sb[k])
+                                         for k in sa):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def timed_train_steps(device):
+    """A StepTimer around every step function that
+    ``train_state.make_train_step`` returns inside the block (the pretrain
+    CLI builds its step through it): CUDA events on the card, each step
+    waited for. Yields the timer."""
+    timer = StepTimer(window=10 ** 6, device=device)
+    make = train_state_mod.make_train_step
+
+    def timed_make(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+
+        def timed(state, batch):
+            timer.tic()
+            out = step_fn(state, batch)
+            timer.toc()
+            return out
+        return timed
+
+    train_state_mod.make_train_step = timed_make
+    try:
+        yield timer
+    finally:
+        train_state_mod.make_train_step = make
+
+
+def trace_idle(path, span="train_step"):
+    """From a Chrome trace of torch.profiler: (wall ms from the first
+    ``span`` annotation's start to the last one's end, the card's busy ms
+    in it: the union of its kernel, copy and set intervals, the card's
+    idle share, the ms inside the ``span`` annotations)."""
+    events = json.load(open(path))["traceEvents"]
+    marks = [e for e in events if e.get("name") == span
+             and e.get("cat") == "user_annotation"]
+    check(marks, f"no {span} annotation in {path}")
+    t0 = min(e["ts"] for e in marks)
+    t1 = max(e["ts"] + e["dur"] for e in marks)
+    device = [SimpleNamespace(time_range=SimpleNamespace(
+        start=max(e["ts"], t0), end=min(e["ts"] + e["dur"], t1)))
+        for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                             "gpu_memset")
+        and e["ts"] < t1 and e["ts"] + e.get("dur", 0) > t0]
+    check(device, f"the trace {path} holds no device activity")
+    wall = (t1 - t0) / 1e3
+    busy = busy_ms(device)
+    return wall, busy, 1.0 - busy / wall, sum(e["dur"] for e in marks) / 1e3
+
+
+PRETRAIN_ARGS = ("--num-classes", str(NUM_CLASSES), "--batch-size",
+                 str(TRAIN_BATCH), "--val-steps", "2", "--log-freq", "5",
+                 "--eval-map", "--workers", "4", "--mesh", "1")
+
+
+def pretrain_path(tmp, device="cuda", steps=20, val_freq=10, extra=()):
+    """Phase 10's drive: ``train.pretrain.main`` at D0@512, 90 classes,
+    batch 32 on synthetic data (``extra`` overrides flags), ``steps``
+    steps with validation and --eval-map every ``val_freq`` (a
+    torch.profiler trace of steps 10-15 when there are that many), then
+    --resume for 4 more steps, then a 6-step --stream run; with every
+    check of the phase that its device allows. Returns (the first run's
+    final state, its logs, the StepTimer of its train steps
+    (timed_train_steps), the launches of each run, the trace's path or
+    None)."""
+    on_card = torch.device(device).type == "cuda"
+    base = list(PRETRAIN_ARGS) + ["--device", device,
+                                  "--checkpoint-dir", f"{tmp}/ck",
+                                  "--per-cat-dir", f"{tmp}/pc"] + list(extra)
+    trace_dir = f"{tmp}/trace" if steps >= 15 else ""
+    argv = base + ["--steps", str(steps), "--val-freq", str(val_freq),
+                   "--profile-dir", trace_dir]
+    args = pretrain.build_argparser().parse_args(argv)
+    val_steps = args.val_steps
+    launches = {}
+
+    sync_if(on_card)
+    reset_launches()
+    with timed_train_steps(device) as timer:
+        state, _, logs = run_driver(pretrain.main, argv, "[10] pretrain:")
+    sync_if(on_card)
+    launches["run"] = launch_counts()
+    losses = [e for e in logs if "loss" in e]
+    check(len(losses) == steps // args.log_freq and all(
+        e[k] is not None and math.isfinite(e[k]) for e in losses
+        for k in ("loss", "class_loss", "box_loss")),
+        "pretrain: a logged loss is missing or not finite")
+    rounds = steps // val_freq
+    check([e["step"] for e in logs if "val_mAP" in e]
+          == [val_freq * (i + 1) for i in range(rounds)],
+          "pretrain: val_mAP not logged at each validation")
+    for i in range(rounds):
+        for kind in ("ap", "corloc"):
+            check(os.path.exists(f"{tmp}/pc/test_{kind}_{val_freq * (i + 1)}"
+                                 ".npy"), f"pretrain: no {kind} dump")
+    fresh_model = create_model_from_config(state.model.config, seed=7,
+                                           device=device)
+    fresh, _ = create_train_state(fresh_model,
+                                  default_detection_train_config())
+    ckpt = CheckpointManager(f"{tmp}/ck")
+    check(ckpt.latest_step() == steps and states_equal(
+        state, ckpt.restore(fresh)),
+        "pretrain: the checkpoint does not restore the final state")
+    val_batches = rounds * val_steps
+    if on_card:
+        want = {"K1": val_batches, "K2": 0, "K3": steps + val_batches,
+                "K4": steps + val_batches}
+        check(launches["run"] == want,
+              f"pretrain: launches {launches['run']}, not {want}")
+    log(f"[10] pretrain: {steps} steps, {rounds} validations of "
+        f"{val_steps} batches, launches {launches['run']}; the checkpoint "
+        "at the last step restores the final state bit for bit")
+
+    reset_launches()
+    state2, text, logs2 = run_driver(
+        pretrain.main, base + ["--steps", str(steps + 4), "--val-freq",
+                               str(val_freq), "--resume"], "[10] resume:")
+    sync_if(on_card)
+    launches["resume"] = launch_counts()
+    check(f"resumed from step {steps}" in text and state2.step == steps + 4
+          and logs2[-1]["final_step"] == steps + 4,
+          "pretrain --resume did not continue from the saved step")
+    rounds2 = (steps + 4) // val_freq - rounds
+    if on_card:
+        n = 4 + rounds2 * val_steps
+        check(launches["resume"]["K3"] == launches["resume"]["K4"] == n,
+              f"pretrain --resume: launches {launches['resume']}")
+
+    reset_launches()
+    state3, _, logs3 = run_driver(
+        pretrain.main, base + ["--stream", "--steps", "6", "--val-freq", "3",
+                               "--checkpoint-dir", f"{tmp}/ck_stream"],
+        "[10] stream:")
+    sync_if(on_card)
+    launches["stream"] = launch_counts()
+    # each val block is summarised when the next train batch arrives
+    check(state3.step == 6 and [e["step"] for e in logs3 if "val_loss" in e]
+          == [2, 5] and all(math.isfinite(e["val_loss"])
+                            for e in logs3 if "val_loss" in e),
+          "pretrain --stream: steps or val blocks")
+    if on_card:
+        want = {"K1": 4, "K2": 0, "K3": 10, "K4": 10}
+        check(launches["stream"] == want,
+              f"pretrain --stream: launches {launches['stream']}, not {want}")
+    log(f"[10] resume: {launches['resume']}; stream: 6 steps, 2 val blocks, "
+        f"launches {launches['stream']}")
+    trace = f"{trace_dir}/trace.json" if trace_dir else None
+    return state, logs, timer, launches, trace
+
+
+def pretrain_kernels(state, device="cuda", extra=()):
+    """K1 / K3 / K4 at the pretrain path's call sites, on its first val
+    batch: the labels kernel vs plain (label_compare) and their times;
+    the EMA model's candidates (three class biases raised by 2, so that
+    the NMS has work) through K1 and its plain version, and K1's time."""
+    args = pretrain.build_argparser().parse_args(
+        list(PRETRAIN_ARGS) + ["--device", device] + list(extra))
+    model = state.model
+    cfg = model.config
+    _, val_loader = pretrain.make_loaders(args, cfg, torch.device(device))
+    batch = next(iter(val_loader))
+    anchors = Anchors.from_config(cfg)
+    anchor_boxes = torch.from_numpy(anchors.boxes).to(device)
+    _, err_box, codes, _ = label_compare(anchor_boxes, batch["bbox"],
+                                         batch["cls"], unmatched=0.5)
+    variables = dict(state.variables(use_ema=True))
+    bias = next(n for n, p in model.named_parameters()
+                if p is model.class_net.predict_bias())
+    raised = variables[bias].detach().clone().view(9, cfg.num_classes)
+    raised[:, :3] += 2.0
+    variables[bias] = raised.view(-1)
+    model.eval()
+    cls, box = torch.func.functional_call(model, variables,
+                                          (batch["image"],))
+    cand = pp.select_candidates(cls, box, anchors, cfg.num_classes,
+                                cfg.max_detection_points)
+    dets_k, keep_k = pp.batch_detection(*cand[:4], kernels=True)
+    dets_p, keep_p = pp.batch_detection(*cand[:4], kernels=False)
+    sync()
+    check(torch.equal(keep_k, keep_p), "[10] K1 keep indices differ")
+    check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
+          "[10] K1 and plain detections differ")
+    err = float((dets_k[..., 4] - dets_p[..., 4]).abs().max())
+    log(f"[10] pretrain val batch {tuple(batch['image'].shape)}: K3 / K4 "
+        f"equal to plain ({int((codes >= 0).sum())} positives), K1 keep "
+        f"equal ({int((keep_k >= 0).sum())} kept), score max abs err "
+        f"{err:.3g}")
+    t = label_kernel_times(anchor_boxes, batch["bbox"], batch["cls"],
+                           tag=f"[10] [{CARD}]")
+    t["K1"] = nms_times(cand, cfg.max_det_per_image, 0.3, "[10]")
+    return t
+
+
+def pretrain_measures(logs, timer, trace):
+    """Phase 10's numbers: the logger's images/s at each log step, the
+    median train step by CUDA events, the card's idle share over the
+    traced steps 10-15, the peak device memory."""
+    rates = [e["img_per_sec"] for e in logs if "img_per_sec" in e]
+    median = timer.median * 1e3
+    log(f"[10] [{CARD}] pretrain D0@512 B={TRAIN_BATCH}: img_per_sec by "
+        f"log step {rates}; median train step {median:.3f} ms (CUDA "
+        f"events, {TRAIN_BATCH * 1e3 / median:.2f} images/s), min "
+        f"{min(timer.times) * 1e3:.3f}, max {max(timer.times) * 1e3:.3f}")
+    wall, busy, idle, in_steps = trace_idle(trace)
+    log(f"[10] [{CARD}] traced steps 10-15 (profiler on): wall {wall:.3f} "
+        f"ms, {in_steps:.3f} ms of it inside the train steps, card busy "
+        f"{busy:.3f} ms, idle {100 * idle:.1f} %")
+    log(f"[10] [{CARD}] peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def loader_rate(cfg, batches=6):
+    """The pretrain path's train loader alone (phase 10's flags: 4
+    threads, pinned copy, normalised on the card): images/s over
+    ``batches`` batches after its first. Also ``--re-prob 1``: the same
+    first batch with a rectangle erased on the card in every image."""
+    args = pretrain.build_argparser().parse_args(list(PRETRAIN_ARGS))
+    train, _ = pretrain.make_loaders(args, cfg, torch.device("cuda"))
+    it = iter(train)
+    first = next(it)
+    args.re_prob = 1.0
+    erasing, _ = pretrain.make_loaders(args, cfg, torch.device("cuda"))
+    erased = next(iter(erasing))
+    changed = (erased["image"] != first["image"]).any(-1).flatten(1).any(1)
+    check(bool(changed.all()) and bool(torch.isfinite(erased["image"]).all())
+          and torch.equal(erased["bbox"], first["bbox"]),
+          "--re-prob 1: RandomErasing on the card")
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    sync()
+    rate = batches * TRAIN_BATCH / (time.perf_counter() - t0)
+    it.close()
+    log(f"[10] [{CARD}] the train loader alone: {rate:.2f} images/s over "
+        f"{batches} batches of {TRAIN_BATCH}")
+
+
+META_DRIVER_ARGS = ("--proj-iters", "4", "--total-iters", "12",
+                    "--val-freq", "6", "--log-freq", "4", "--eval-map",
+                    "--eval-ood")
+
+
+@contextlib.contextmanager
+def counted(cls, name, record):
+    """Count the calls of method ``name`` of ``cls`` in ``record[name]``
+    (and keep its last result in ``record['last ' + name]``) while the
+    block runs."""
+    original = getattr(cls, name)
+    record[name] = 0
+    lock = threading.Lock()       # episodes are built on two threads
+
+    def wrapper(self, *args, **kwargs):
+        result = original(self, *args, **kwargs)
+        with lock:
+            record[name] += 1
+            record["last " + name] = result
+        return result
+    setattr(cls, name, wrapper)
+    try:
+        yield record
+    finally:
+        setattr(cls, name, original)
+
+
+def meta_driver_path(tmp, device="cuda", extra=()):
+    """Phase 11's drive: ``meta.train_driver.main`` at its defaults (640 px
+    queries, 256 px supports, 1-way, 25 supports, 25 + 6 queries, meta
+    batch 4) on synthetic categories, 4 phase-A then phase-B iterations
+    to 12, validation from iteration 6 with --eval-map and --eval-ood
+    (``extra`` overrides flags); with every check of the phase that its
+    device allows. Returns (the trainer, the logs, the launches, the
+    last episode built)."""
+    on_card = torch.device(device).type == "cuda"
+    base = list(META_DRIVER_ARGS) + ["--device", device, "--per-cat-dir",
+                                     f"{tmp}/pc"] + list(extra)
+    calls = {}
+    sync_if(on_card)
+    reset_launches()
+    with counted(EpisodeBuilder, "build", calls), \
+            counted(MetaTrainer, "episode_detections", calls), \
+            counted(MetaTrainer, "episode_ood_scores", calls):
+        trainer, _, logs = run_driver(
+            train_driver.main, base + ["--checkpoint-dir", f"{tmp}/ck"],
+            "[11] meta driver:")
+    sync_if(on_card)
+    launches = launch_counts()
+    phases = {e.get("phase") for e in logs if "phase" in e}
+    check(phases == {"proj", "maml"}, f"meta driver: phases {phases}")
+    check(logs[-1].get("final_iter") == 12, "meta driver: final_iter")
+    ood = [e["ood_auroc_gt"] for e in logs if "ood_auroc_gt" in e]
+    check(ood and all(isinstance(v, float) and 0.0 <= v <= 1.0
+                      for v in ood), f"meta driver: ood_auroc_gt {ood}")
+    for e in logs:
+        for k, v in e.items():
+            check(not isinstance(v, float) or math.isfinite(v),
+                  f"meta driver: {k} {v}")
+    fresh, _, _ = run_driver(
+        train_driver.main, base + ["--total-iters", "0", "--checkpoint-dir",
+                                   f"{tmp}/ck_fresh"], "[11] fresh:")
+    CheckpointManager(f"{tmp}/ck").restore(fresh.meta_params)
+    check(all(torch.equal(fresh.meta_params[t][n], v)
+              for t, d in trainer.meta_params.items() for n, v in d.items()),
+          "meta driver: the saved meta_params do not load back bit-equal")
+    detections = calls["episode_detections"] + calls["episode_ood_scores"]
+    if on_card:
+        check(launches["K3"] == launches["K4"] == calls["build"] > 0,
+              f"meta driver: K3 / K4 must launch once a build "
+              f"({calls['build']}): {launches}")
+        check(launches["K1"] == detections > 0 and launches["K2"] == 0,
+              f"meta driver: K1 must launch once a detections / OOD call "
+              f"({detections}): {launches}")
+    log(f"[11] meta driver: {calls['build']} episodes built, {detections} "
+        f"detections / OOD calls, launches {launches}; the saved meta_params "
+        "load into a fresh trainer bit for bit")
+    return trainer, logs, launches, calls["last build"]
+
+
+META_RATE_ARGS = ("--proj-iters", "4", "--total-iters", "12",
+                  "--val-freq", "100", "--log-freq", "4")
+
+
+def meta_driver_rate(tmp, device="cuda", extra=()):
+    """Phase 11's training rate: ``meta.train_driver.main`` at its defaults
+    for 4 phase-A then 8 phase-B iterations, its first validation block
+    due at draw 100, so that every iteration is a training episode (in
+    meta_driver_path's drive, validation from draw 6, iterations 6-12 are
+    validation episodes). Returns its logs."""
+    _, _, logs = run_driver(
+        train_driver.main, list(META_RATE_ARGS) + [
+            "--device", device, "--checkpoint-dir", f"{tmp}/ck_rate",
+            "--per-cat-dir", f"{tmp}/pc_rate"] + list(extra),
+        "[11] training rate:")
+    blocks = [(e["iter"], e["phase"]) for e in logs if "phase" in e]
+    check(blocks == [(4, "proj"), (8, "maml"), (12, "maml")]
+          and not any("val_loss" in e for e in logs),
+          f"meta driver training rate: blocks {blocks}")
+    return logs
+
+
+def episode_build_rate(trainer, episodes=3):
+    """The meta driver's episode source alone (its synthetic categories,
+    the trainer's configs): ms a train episode built on this thread, PIL
+    to labels on the card, after a first one."""
+    mc = trainer.meta_cfg
+    src = SyntheticEpisodeSource(num_cats=6, img_hw=(mc.img_size,) * 2)
+    cats = list(range(1, 7))
+    dataset = EpisodicDataset(src.support_source(cats), src,
+                              trainer.model_cfg, mc, train_cats=cats[:4],
+                              val_cats=cats[4:], device=trainer.device)
+    dataset._episode(val_iter=False)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(episodes):
+        dataset._episode(val_iter=False)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / episodes
+    log(f"[11] [{CARD}] the episode source alone: {ms:.1f} ms an episode "
+        f"({1e3 / ms:.3f} episodes/s) over {episodes}")
+
+
+def meta_driver_measures(logs, rate_logs):
+    """Phase 11's numbers: episodes/s of each logged block by phase, of
+    the training-only run (meta_driver_rate) and of the checked drive,
+    whose phase-B blocks are validation episodes from iteration 6; the
+    peak device memory."""
+    for name, entries in (("training episodes only", rate_logs),
+                          ("checked drive, validation from iteration 6",
+                           logs)):
+        for phase in ("proj", "maml"):
+            rates = [(e["iter"], e["eps_per_sec"]) for e in entries
+                     if e.get("phase") == phase]
+            log(f"[11] [{CARD}] meta driver phase {phase} ({name}): "
+                f"eps_per_sec by (iteration, rate) {rates}")
+    log(f"[11] [{CARD}] peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
 def sync_if(on_card):
     if on_card:
         sync()
@@ -1539,6 +2010,41 @@ def main():
     sync()
     log(f"[9] phase 9 took {time.time() - t0:.1f} s")
     del bench, batches
+    torch.cuda.empty_cache()
+
+    # 10. the pretrain CLI (D0@512, 90 classes, batch 32: 20 steps with
+    #     validation and --eval-map, then --resume, then --stream) and
+    # 11. the meta training CLI at its defaults. Both run f32 models, with
+    #     PyTorch's default TF32 setting for cuDNN convolutions, as a user
+    #     runs them; nothing here compares their f32 outputs across
+    #     frameworks.
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
+        state, logs, timer, _, trace = pretrain_path(tmp)
+        pretrain_measures(logs, timer, trace)
+        loader_rate(state.model.config)
+        pretrain_kernels(state)
+    sync()
+    log(f"[10] phase 10 took {time.time() - t0:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
+        trainer, logs, _, episode = meta_driver_path(tmp)
+        meta_driver_measures(logs, meta_driver_rate(tmp))
+        episode_build_rate(trainer)
+        # the class bias raised by 2 (as in phase 8) so that K1 has work
+        with torch.no_grad():
+            trainer.model.class_net.predict_bias().add_(2.0)
+        cand, _ = meta_plain_compare(trainer, episode, tag="[11]")
+        meta_kernel_times(trainer, episode, cand, torch.from_numpy(
+            trainer.qry_anchors().boxes).cuda(), tag="[11]")
+    sync()
+    log(f"[11] phase 11 took {time.time() - t0:.1f} s")
+    del trainer, episode
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",

@@ -23,6 +23,7 @@ import torch
 from ..factory import resolve_device
 from .device_preproc import normalize_uint8
 from .parsers import Parser
+from .random_erasing import random_erasing
 from .transforms import transforms_coco_eval, transforms_coco_train
 
 MAX_INSTANCES = 100
@@ -173,12 +174,6 @@ def collate_batch(samples: List[Tuple[np.ndarray, Dict]],
     return batch
 
 
-def _random_erasing_refused():
-    return NotImplementedError(
-        "RandomErasing (re_prob > 0) is not ported yet (ROADMAP Queue 1 "
-        "item 1, the train-side data sources)")
-
-
 class PrefetchLoader:
     """Threaded batch producer that keeps a few batches on ``device`` ahead
     of the consumer.
@@ -187,10 +182,12 @@ class PrefetchLoader:
     collated batch becomes torch tensors, pinned and copied to the card with
     ``non_blocking=True`` (plain copies for the CPU), and with ``normalize``
     its uint8 images are normalised there (reference PrefetchLoader,
-    loader.py:104-170). ``device``: the CUDA card when None (raises without
-    one), or the device named. The JAX loader's per-process split of the
-    sample order waits for the port's data parallelism (ROADMAP Queue 1
-    item 7).
+    loader.py:104-170). ``re_prob > 0`` then applies RandomErasing there
+    (``re_mode``, up to ``re_count`` rectangles), drawn from a generator on
+    the device seeded by (seed, epoch, batch), as the JAX loader seeds
+    its key. ``device``: the CUDA card when None (raises without one), or
+    the device named. The JAX loader's per-process split of the sample
+    order waits for the port's data parallelism (ROADMAP Queue 1 item 7).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -199,9 +196,8 @@ class PrefetchLoader:
                  seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
                  normalize: bool = True, mean=None, std=None,
-                 re_prob: float = 0.0):
-        if re_prob > 0:
-            raise _random_erasing_refused()
+                 re_prob: float = 0.0, re_mode: str = "pixel",
+                 re_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -216,6 +212,11 @@ class PrefetchLoader:
         self.normalize = normalize
         self.mean = mean
         self.std = std
+        # RandomErasing after normalisation, on the device (reference
+        # PrefetchLoader wiring, effdet/data/loader.py:115-130)
+        self.re_prob = re_prob
+        self.re_mode = re_mode
+        self.re_count = re_count
         # epoch counter: each __iter__ pass reshuffles with a fresh
         # (seed, epoch) stream, the DistributedSampler.set_epoch semantic
         self._epoch = 0
@@ -236,8 +237,8 @@ class PrefetchLoader:
             n += 1
         return n
 
-    def _to_device(self, batch: Dict[str, np.ndarray]
-                   ) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch: Dict[str, np.ndarray], epoch: int = 0,
+                   index: int = 0) -> Dict[str, torch.Tensor]:
         on_card = self.device.type == "cuda"
         out = {}
         for k, v in batch.items():
@@ -251,6 +252,12 @@ class PrefetchLoader:
             if self.std is not None:
                 norm["std"] = tuple(self.std)
             out["image"] = normalize_uint8(out["image"], **norm)
+            if self.re_prob > 0:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    hash((self.seed, epoch, index)) & 0x7FFFFFFF)
+                out["image"] = random_erasing(
+                    out["image"], gen, probability=self.re_prob,
+                    mode=self.re_mode, max_count=self.re_count)
         return out
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
@@ -272,13 +279,14 @@ class PrefetchLoader:
                     torch.cuda.set_device(self.device)
                 with ThreadPoolExecutor(
                         max_workers=max(1, self.workers)) as pool:
-                    for idxs in batches:
+                    for bi, idxs in enumerate(batches):
                         if stop.is_set():
                             return
                         samples = list(pool.map(self.dataset.__getitem__,
                                                 idxs))
                         q.put(self._to_device(
-                            collate_batch(samples, self.max_instances)))
+                            collate_batch(samples, self.max_instances),
+                            epoch, bi))
             except BaseException as e:          # re-raised by the consumer
                 failure.append(e)
             finally:
@@ -308,20 +316,19 @@ def create_loader(dataset, input_size: Tuple[int, int], batch_size: int,
                   interpolation: str = "bilinear",
                   fill_color: Tuple[int, int, int] = (124, 116, 104),
                   mean=None, std=None, re_prob: float = 0.0,
+                  re_mode: str = "pixel", re_count: int = 1,
                   max_instances: int = MAX_INSTANCES, seed: int = 0,
                   distributed: bool = False,
                   device: Optional[Union[str, torch.device]] = None):
     """Dataset + transform + prefetch loader (reference create_loader,
     loader.py:173-232) on ``device`` (the card when None). mean/std default
-    to ImageNet. RandomErasing (``re_prob > 0`` when training) and the
-    per-process split (``distributed=True``) are not ported yet and
-    raise."""
+    to ImageNet; ``re_prob > 0`` erases rectangles of the training batches
+    after normalisation (loader.py:115-130). The per-process split
+    (``distributed=True``) is not ported yet and raises."""
     if distributed:
         raise NotImplementedError(
             "the per-process data split is not ported yet (ROADMAP Queue 1 "
             "item 7, data parallelism)")
-    if is_training and re_prob > 0:
-        raise _random_erasing_refused()
     if getattr(dataset, "transform", None) is None and hasattr(dataset, "transform"):
         tf = (transforms_coco_train(input_size, fill_color=fill_color)
               if is_training else
@@ -332,4 +339,5 @@ def create_loader(dataset, input_size: Tuple[int, int], batch_size: int,
     return PrefetchLoader(
         dataset, batch_size=batch_size, shuffle=is_training, workers=workers,
         max_instances=max_instances, drop_last=is_training, seed=seed,
-        mean=mean, std=std, device=device)
+        mean=mean, std=std, re_prob=re_prob if is_training else 0.0,
+        re_mode=re_mode, re_count=re_count, device=device)

@@ -40,6 +40,7 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -108,3 +109,11 @@ def stream_handle(device: torch.device) -> int:
     .cuda_stream`` gives, without building the Stream object (a launch's
     host cost is of the order of the labeler kernels' time)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. Episodes may be labelled on a
+    prefetch thread while the main thread labels or detects, so the
+    increment holds a lock."""
+    with _count_lock:
+        wrapper.launches += 1

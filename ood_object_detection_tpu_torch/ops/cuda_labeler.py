@@ -223,7 +223,7 @@ def batch_match(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
             best.data_ptr(), cuda_build.stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"label match kernel launch failed: CUDA error {err}")
-    batch_match.launches += 1
+    cuda_build.count_launch(batch_match)
     return vals, rows, best
 
 
@@ -277,7 +277,7 @@ def batch_codes_targets(
     if err != 0:
         raise RuntimeError(f"label codes / targets kernel launch failed: CUDA "
                            f"error {err}")
-    batch_codes_targets.launches += 1
+    cuda_build.count_launch(batch_codes_targets)
     return codes, cls_targets, box_targets, num_positives
 
 

@@ -133,7 +133,7 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed (cluster {cluster}): "
                            f"CUDA error {err}")
-    batched_nms.launches += 1
+    cuda_build.count_launch(batched_nms)
     return keep_idx, keep_scores
 
 

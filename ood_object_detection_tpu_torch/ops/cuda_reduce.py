@@ -196,7 +196,7 @@ def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
                           cuda_build.stream_handle(device))
     if err != 0:
         raise RuntimeError(f"key/energy kernel launch failed: CUDA error {err}")
-    key_energy_reduce.launches += 1
+    cuda_build.count_launch(key_energy_reduce)
     return key_all, energy_all
 
 

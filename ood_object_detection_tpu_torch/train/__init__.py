@@ -1,11 +1,14 @@
-"""Train state and the single-device train / eval steps. The JAX
-package's checkpoint manager waits for a later slice."""
+"""Train state, the single-device train / eval steps and the torch
+checkpoints with true resume (the ``pretrain`` CLI is
+``python -m ood_object_detection_tpu_torch.train.pretrain``)."""
+from .checkpoint import CheckpointManager, restore_variables, save_variables
 from .train_state import (
     TrainState,
     cosine_lr_schedule,
     create_train_state,
     detection_eval_step,
     detection_train_step,
+    linear_schedule,
     make_grouped_optimizer,
     make_optimizer,
     make_train_step,
@@ -13,7 +16,9 @@ from .train_state import (
 )
 
 __all__ = [
-    "TrainState", "cosine_lr_schedule", "create_train_state",
-    "detection_eval_step", "detection_train_step", "make_grouped_optimizer",
-    "make_optimizer", "make_train_step", "param_group_labels",
+    "CheckpointManager", "TrainState", "cosine_lr_schedule",
+    "create_train_state", "detection_eval_step", "detection_train_step",
+    "linear_schedule", "make_grouped_optimizer", "make_optimizer",
+    "make_train_step", "param_group_labels", "restore_variables",
+    "save_variables",
 ]

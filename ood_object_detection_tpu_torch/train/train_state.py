@@ -125,6 +125,23 @@ def make_grouped_optimizer(train_config: TrainConfig,
     return _base_tx(train_config, groups)
 
 
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """optax ``linear_schedule``: ``init_value`` moving linearly to
+    ``end_value`` over ``transition_steps`` steps, then constant; computed
+    in f32 as optax computes it."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count: int) -> float:
+        frac = np.float32(1) - np.float32(min(max(count, 0),
+                                              transition_steps)) \
+            / np.float32(transition_steps)
+        return float(np.float32(init_value - end_value) * frac
+                     + np.float32(end_value))
+    return schedule
+
+
 def cosine_lr_schedule(train_config: TrainConfig,
                        steps_per_epoch: int) -> Callable[[int], float]:
     """Linear warm-up from ``warmup_lr`` to ``lr`` over the warm-up epochs,

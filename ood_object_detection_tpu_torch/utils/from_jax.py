@@ -24,7 +24,9 @@ Layouts: conv ``[kh, kw, in/g, out]`` -> ``[out, in/g, kh, kw]``; dense
 ``batch_stats`` ``mean/var`` -> ``running_mean/running_var``.
 
 ``load_jax_ema`` carries a JAX train state's ``ema_params`` tree into the
-port's EMA copy the same way. For the episodic harness,
+port's EMA copy the same way, and ``load_jax_train_state`` a whole JAX
+``TrainState`` (parameters, BatchNorm statistics, EMA, the optax momentum
+trace or adam moments, the step) into the port's. For the episodic harness,
 ``load_jax_projection`` loads a JAX ProjectionNet's parameters
 (``dense_{i}/kernel`` -> ``dense.{i}.weight``, and the gate scalars
 ``dot_mult`` / ``dot_add``) and ``inner_lrs_from_jax`` turns the JAX inner
@@ -173,6 +175,82 @@ def load_jax_ema(ema_params: Dict[str, torch.Tensor], model: nn.Module,
     with torch.no_grad():
         for name, value in tensors.items():
             ema_params[name].copy_(value)
+
+
+def _unflatten(flat: Dict[Tuple[str, ...], Any]) -> Dict:
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _optax_states(opt_state: Any, fields: Tuple[str, ...]) -> list:
+    """Every optax state (a named tuple) under ``opt_state`` (nested
+    tuples, named tuples and dicts: ``chain``, ``multi_transform``) with
+    all of ``fields``."""
+    if all(f in getattr(opt_state, "_fields", ()) for f in fields):
+        return [opt_state]
+    if isinstance(opt_state, dict):
+        children = opt_state.values()
+    elif isinstance(opt_state, tuple):
+        children = opt_state
+    else:
+        children = [getattr(opt_state, "inner_state", None)]
+    return [s for c in children if c is not None
+            for s in _optax_states(c, fields)]
+
+
+def _merged(trees: list) -> Dict:
+    """One parameter tree from per-group trees whose other groups' leaves
+    are optax's ``MaskedNode`` (an empty tuple)."""
+    flat = {}
+    for tree in trees:
+        flat.update({k: v for k, v in _flatten(tree).items()
+                     if not isinstance(v, tuple)})
+    return _unflatten(flat)
+
+
+def load_jax_train_state(state, jax_state: Any) -> None:
+    """Start the port's ``train.TrainState`` from a JAX one, in place: the
+    parameters and BatchNorm statistics (``load_jax_variables``), the EMA
+    copy (``load_jax_ema``), the step, and the optimizer's state: optax's
+    momentum trace as torch SGD's ``momentum_buffer`` (the same
+    recurrence, ``t = g + m t``), or adam's ``mu`` / ``nu`` / ``count`` as
+    torch Adam's ``exp_avg`` / ``exp_avg_sq`` / ``step``. ``jax_state``: a
+    JAX ``TrainState`` or a dict of its fields."""
+    def get(name):
+        return jax_state[name] if isinstance(jax_state, dict) else \
+            getattr(jax_state, name)
+    model, tx = state.model, state.optimizer
+    load_jax_variables(model, {"params": get("params"),
+                               "batch_stats": get("batch_stats")})
+    if state.ema_params is not None:
+        load_jax_ema(state.ema_params, model, get("ema_params"))
+    named = dict(model.named_parameters())
+    traces = _optax_states(get("opt_state"), ("trace",))
+    adams = _optax_states(get("opt_state"), ("mu", "nu", "count"))
+    if isinstance(tx, torch.optim.SGD) and traces:
+        trace, _ = _jax_tensors(model, {"params": _merged(
+            [t.trace for t in traces])}, ("params",))
+        for name, p in named.items():
+            tx.state[p]["momentum_buffer"] = trace[name].to(p.device)
+    elif isinstance(tx, torch.optim.Adam) and adams:
+        mu, _ = _jax_tensors(model, {"params": _merged(
+            [a.mu for a in adams])}, ("params",))
+        nu, _ = _jax_tensors(model, {"params": _merged(
+            [a.nu for a in adams])}, ("params",))
+        count = float(np.asarray(adams[0].count))
+        for name, p in named.items():
+            tx.state[p].update(step=torch.tensor(count),
+                               exp_avg=mu[name].to(p.device),
+                               exp_avg_sq=nu[name].to(p.device))
+    else:
+        raise ValueError(f"the JAX optimizer state does not match the "
+                         f"port's {type(tx).__name__}")
+    state.step = int(np.asarray(get("step")))
 
 
 def load_jax_projection(proj_net: nn.Module, proj_params: Dict[str, Any]

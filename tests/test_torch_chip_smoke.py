@@ -3,6 +3,7 @@ window's device busy time is the union of the device intervals, and
 K1's bound counts the picks this run's data makes; and the drives of its
 meta (phase 8) and validate (phase 9) paths on the CPU at 128 px."""
 import importlib.util
+import json
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -28,6 +29,26 @@ def test_busy_ms_is_the_union_of_device_intervals():
               _event(30, 31), _event(40, 40)]
     assert chip_smoke.busy_ms(events) == pytest.approx((15 + 11) / 1e3)
     assert chip_smoke.busy_ms([]) == 0.0
+
+
+def test_trace_idle_reads_the_annotated_window(tmp_path):
+    """The idle share of phase 10's trace: the wall from the first
+    train_step annotation's start to the last one's end, the busy time the
+    union of the card's kernel / copy / set intervals clipped to it."""
+    events = [
+        {"name": "train_step", "cat": "user_annotation", "ts": 100, "dur": 40},
+        {"name": "train_step", "cat": "user_annotation", "ts": 150, "dur": 50},
+        {"name": "k", "cat": "kernel", "ts": 90, "dur": 20},       # 10 in
+        {"name": "k", "cat": "kernel", "ts": 120, "dur": 10},
+        {"name": "c", "cat": "gpu_memcpy", "ts": 125, "dur": 10},  # 5 new
+        {"name": "s", "cat": "gpu_memset", "ts": 190, "dur": 30},  # 10 in
+        {"name": "k", "cat": "kernel", "ts": 300, "dur": 5},       # outside
+        {"name": "op", "cat": "cpu_op", "ts": 100, "dur": 100}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    wall, busy, idle, in_steps = chip_smoke.trace_idle(str(path))
+    assert wall == pytest.approx(0.1) and busy == pytest.approx(0.035)
+    assert idle == pytest.approx(0.65) and in_steps == pytest.approx(0.09)
 
 
 @pytest.mark.parametrize("picks, soft", [((3, 0), True), ((3, 0), False),
@@ -152,3 +173,55 @@ def test_validate_path_drive_runs_on_the_cpu(tmp_path):
     assert metrics["images"] == 5 and times["batches"] == 3
     assert [b["image"].shape[0] for b in batches] == [2, 2, 1]
     assert set(launches.values()) == {0}
+
+
+def test_pretrain_path_drive_runs_on_the_cpu(tmp_path):
+    """Phase 10's drive (pretrain_path) on the CPU at 128 px with a
+    one-cell, one-repeat D0, 4 classes, batch 2, 4 steps validating every
+    2nd: every check of the phase that does not need the card passes
+    (finite logged losses, val_mAP at each validation, the per-category
+    dumps, the checkpoint restoring the final state bit for bit,
+    --resume continuing from step 4, the --stream run's steps and val
+    blocks); the plain versions launch nothing."""
+    tiny = ["--num-classes", "4", "--image-size", "128", "--fpn-repeats",
+            "1", "--head-repeats", "1", "--batch-size", "2", "--workers",
+            "1", "--log-freq", "2", "--warmup-steps", "2"]
+    with torch.enable_grad():
+        state, logs, timer, launches, trace = chip_smoke.pretrain_path(
+            str(tmp_path), device="cpu", steps=4, val_freq=2, extra=tiny)
+    assert state.step == 4 and len(timer.times) == 4 and trace is None
+    assert [e["step"] for e in logs if "val_mAP" in e] == [2, 4]
+    assert {k: set(v.values()) for k, v in launches.items()} == {
+        "run": {0}, "resume": {0}, "stream": {0}}
+
+
+def test_meta_driver_path_drive_runs_on_the_cpu(tmp_path):
+    """Phase 11's drive (meta_driver_path) on the CPU at 128 px with a
+    one-cell, one-repeat D0, 2 supports, 2 + 1 queries: every check of the
+    phase that does not need the card passes (both phases logged,
+    final_iter 12, ood_auroc_gt in [0, 1], finite metrics, the saved
+    meta_params loading into a fresh trainer bit for bit); the plain
+    versions launch nothing."""
+    tiny = ["--img-size", "128", "--qry-img-size", "128", "--fpn-repeats",
+            "1", "--head-repeats", "1", "--num-sup", "2", "--num-qry", "2",
+            "--num-zero-images", "1"]
+    with torch.enable_grad():
+        trainer, logs, launches, episode = chip_smoke.meta_driver_path(
+            str(tmp_path), device="cpu", extra=tiny)
+    assert logs[-1]["final_iter"] == 12 and set(launches.values()) == {0}
+    assert tuple(episode["qry_images"].shape) == (3, 128, 128, 3)
+
+
+def test_meta_driver_rate_drive_runs_on_the_cpu(tmp_path):
+    """Phase 11's training-rate drive (meta_driver_rate) on the CPU at the
+    same tiny size: 4 phase-A and 8 phase-B iterations, every one a
+    training episode (no validation block logged)."""
+    tiny = ["--img-size", "128", "--qry-img-size", "128", "--fpn-repeats",
+            "1", "--head-repeats", "1", "--num-sup", "2", "--num-qry", "2",
+            "--num-zero-images", "1"]
+    with torch.enable_grad():
+        logs = chip_smoke.meta_driver_rate(str(tmp_path), device="cpu",
+                                           extra=tiny)
+    assert [e["iter"] for e in logs if "eps_per_sec" in e] == [4, 8, 12]
+    assert all(e["eps_per_sec"] > 0 for e in logs if "eps_per_sec" in e)
+    assert logs[-1]["final_iter"] == 12

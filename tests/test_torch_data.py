@@ -267,15 +267,19 @@ def test_prefetch_loader_drop_last_matches_jax():
 
 
 def test_loader_refusals():
+    """The per-process split still raises (ROADMAP Queue 1 item 7);
+    RandomErasing is ported, so ``re_prob`` reaches the training loader
+    only, as in the JAX ``create_loader``."""
     ds = dataset.SyntheticDetectionDataset(num_images=2)
-    with pytest.raises(NotImplementedError, match="RandomErasing"):
-        dataset.PrefetchLoader(ds, 2, device="cpu", re_prob=0.5)
+    assert dataset.PrefetchLoader(ds, 2, device="cpu",
+                                  re_prob=0.5).re_prob == 0.5
     with pytest.raises(NotImplementedError, match="item 7"):
         dataset.create_loader(ds, (64, 64), 2, distributed=True,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="RandomErasing"):
-        dataset.create_loader(ds, (64, 64), 2, is_training=True, re_prob=0.3,
-                              device="cpu")
+    for training, want in ((True, 0.3), (False, 0.0)):
+        loader = dataset.create_loader(ds, (64, 64), 2, is_training=training,
+                                       re_prob=0.3, device="cpu")
+        assert loader.re_prob == want
 
 
 def test_create_loader_transforms_match_jax(tmp_path):

@@ -47,6 +47,15 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.evaluation.evaluators",
     "ood_object_detection_tpu_torch.utils.checkpoint_convert",
     "ood_object_detection_tpu_torch.validate",
+    "ood_object_detection_tpu_torch.data",
+    "ood_object_detection_tpu_torch.data.random_erasing",
+    "ood_object_detection_tpu_torch.data.pretrain_stream",
+    "ood_object_detection_tpu_torch.data.metadata",
+    "ood_object_detection_tpu_torch.train.checkpoint",
+    "ood_object_detection_tpu_torch.train.pretrain",
+    "ood_object_detection_tpu_torch.meta.train_driver",
+    "ood_object_detection_tpu_torch.utils",
+    "ood_object_detection_tpu_torch.utils.profiling",
 )
 
 
@@ -137,3 +146,14 @@ def test_unported_train_options_raise():
                         default_detection_train_config(), mesh=object())
     with pytest.raises(ValueError, match="freeze_bn"):
         model.train_bn("heads")
+
+
+@pytest.mark.parametrize("driver", ["train.pretrain", "meta.train_driver"])
+def test_training_drivers_without_device_need_cuda(monkeypatch, tmp_path,
+                                                   driver):
+    """The two training CLIs run on the card unless ``--device cpu``."""
+    import importlib
+    module = importlib.import_module(f"ood_object_detection_tpu_torch.{driver}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--checkpoint-dir", str(tmp_path)])

@@ -21,6 +21,7 @@ num_positives exactly.
 """
 import copy
 
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -183,3 +184,148 @@ def test_train_mode_running_variance_is_biased():
     before = model.running_var.clone()
     model(x)
     assert torch.equal(model.running_var, before)
+
+
+def _optax_filled(opt_state, tree, count=5):
+    """``opt_state`` with every momentum trace and adam moment replaced by
+    ``tree`` (|tree| for the second moment; optax's masked leaves kept) and
+    every adam count by ``count``."""
+    import optax
+
+    def masked(node, values):
+        return jax.tree.map(
+            lambda m, r: m if isinstance(m, optax.MaskedNode) else r,
+            node, values, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+
+    def fill(node):
+        if hasattr(node, "trace"):
+            return node._replace(trace=masked(node.trace, tree))
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node._replace(
+                mu=masked(node.mu, tree),
+                nu=masked(node.nu, jax.tree.map(np.abs, tree)),
+                count=jnp.asarray(count, jnp.int32))
+        if isinstance(node, dict):
+            return {k: fill(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            children = [fill(c) for c in node]
+            return type(node)(*children) if hasattr(node, "_replace") \
+                else tuple(children)
+        return node
+    return fill(opt_state)
+
+
+def _expected_params(variables, tree):
+    """{port parameter name: tensor} of a params-shaped JAX ``tree``,
+    through ``load_jax_variables`` (held by tests/test_torch_from_jax.py)."""
+    model = _port_model({"params": tree,
+                         "batch_stats": variables["batch_stats"]})
+    return dict(model.named_parameters())
+
+
+def test_carried_train_state_continues_like_jax(jax_start):
+    """``utils.from_jax.load_jax_train_state``: a JAX train state at step 7
+    with a non-zero momentum trace becomes the port's (parameters,
+    statistics, EMA, trace as momentum buffers bit-equal, step 7), and one
+    more step on each side agrees to the tolerances above."""
+    from ood_object_detection_tpu_torch.utils.from_jax import (
+        load_jax_train_state)
+    model_j, tx_j, tcfg_j, start = jax_start
+    rng = np.random.default_rng(3)
+    trace = jax.tree.map(
+        lambda p: rng.normal(0, 0.01, p.shape).astype(np.float32),
+        start.params)
+    jstate = start.replace(opt_state=_optax_filled(start.opt_state, trace),
+                           step=jnp.asarray(7, jnp.int32))
+    batch = _batches()[0]
+    jstates, jmetrics = _jax_steps((model_j, tx_j, tcfg_j, jstate),
+                                   "backbone", [batch])
+
+    model = _port_model(start.variables())
+    tcfg = default_detection_train_config()
+    state, tx = create_train_state(model, tcfg)
+    load_jax_train_state(state, jstate)
+    assert state.step == 7
+    want = _expected_params(start.variables(), trace)
+    for name, p in model.named_parameters():
+        assert torch.equal(tx.state[p]["momentum_buffer"], want[name]), name
+    step = make_train_step(model, tx, Anchors.from_config(model.config), tcfg,
+                           freeze_bn="backbone")
+    state, metrics = step(state, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+    assert state.step == 8
+    for k in METRICS:
+        np.testing.assert_allclose(float(metrics[k]), jmetrics[0][k],
+                                   rtol=1e-4, err_msg=k)
+    expected = _port_model(jstates[0].variables()).state_dict()
+    for name, value in model.state_dict().items():
+        if not name.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(value.numpy(), expected[name].numpy(),
+                                       rtol=1e-4, atol=2e-5, err_msg=name)
+    trace_after = _expected_params(
+        start.variables(),
+        _optax_states_trace(jstates[0].opt_state))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(
+            tx.state[p]["momentum_buffer"].numpy(),
+            trace_after[name].detach().numpy(), rtol=1e-4, atol=2e-5,
+            err_msg=f"trace {name}")
+
+
+def _optax_states_trace(opt_state):
+    """The momentum trace of an ungrouped optax SGD state."""
+    for node in jax.tree.leaves(opt_state, is_leaf=lambda x: hasattr(
+            x, "trace")):
+        if hasattr(node, "trace"):
+            return node.trace
+    raise AssertionError("no trace in the optax state")
+
+
+@pytest.mark.parametrize("kind", ["adam", "grouped_momentum"])
+def test_carried_optimizer_state_is_exact(kind):
+    """adam's moments and count, and the per-group momentum traces of a
+    ``make_grouped_optimizer`` state (optax ``multi_transform``, whose
+    groups mask each other's leaves), carried into torch Adam / SGD state
+    bit for bit."""
+    from ood_object_detection_tpu.train import (
+        make_grouped_optimizer as jax_grouped)
+    from ood_object_detection_tpu_torch.train import make_grouped_optimizer
+    from ood_object_detection_tpu_torch.utils.from_jax import (
+        load_jax_train_state)
+    cfg = jax_cfg("efficientdet_d0", **TINY)
+    init = lambda k: JaxDet(cfg).init(k, jnp.zeros((1, IMG, IMG, 3)),  # noqa
+                                      False)
+    variables = random_variables(init, seed=0)
+    tree = random_variables(init, seed=2)["params"]
+    groups = {"backbone": 0.1, "fpn": 0.05, "heads": 0.01}
+    if kind == "adam":
+        tcfg_j = jax_train_config()
+        tcfg_j.opt = "adam"
+        tx_j = jax_optimizer(tcfg_j)
+    else:
+        tx_j = jax_grouped(jax_train_config(), groups)
+    opt_state = _optax_filled(tx_j.init(variables["params"]), tree)
+    jstate = {"params": variables["params"],
+              "batch_stats": variables["batch_stats"],
+              "ema_params": variables["params"], "opt_state": opt_state,
+              "step": 5}
+
+    model = _port_model(variables)
+    tcfg = default_detection_train_config()
+    tx = None
+    if kind == "adam":
+        tcfg.opt = "adam"
+    else:
+        tx = make_grouped_optimizer(tcfg, groups, model)
+    state, tx = create_train_state(model, tcfg, tx=tx)
+    load_jax_train_state(state, jstate)
+    assert state.step == 5
+    want = _expected_params(variables, tree)
+    for name, p in model.named_parameters():
+        st = tx.state[p]
+        if kind == "adam":
+            assert torch.equal(st["exp_avg"], want[name]), name
+            assert torch.equal(st["exp_avg_sq"], want[name].abs()), name
+            assert float(st["step"]) == 5.0
+        else:
+            assert torch.equal(st["momentum_buffer"], want[name]), name
