@@ -17,6 +17,11 @@ meta path, phase 8, its meta model):
     -> PIL decode + letterbox on host threads -> pinned copy to the card
     -> normalise -> forward -> K2 -> top-k -> K1 -> the evaluator thread
     -> mAP;
+  - serving (phase 12): the same predict path as one torch.export artifact
+    with the weights and the letterbox inside, K2 and K1 as custom
+    operators; the deploy CLI: JPEGs -> PIL or native decode + letterbox
+    -> pinned copy to the card -> normalise -> forward -> K2 -> K1 ->
+    boxes in the original image;
   - the two training CLIs (f32, as their model configs say): pretrain
     (loader or category stream -> the train step's K3 -> K4 -> val loss
     and the EMA model's detections through K1 -> mAP -> torch
@@ -112,6 +117,22 @@ Phases, each synchronised so that a fault shows where it happened:
      iterations with no validation (meta_driver_rate), the peak memory,
      and K1 / K3 / K4 on the last episode against their plain versions
      and timed.
+ 12. the serving path (serving_path): D0@512, 90 classes, bf16, soft-NMS,
+     energy OOD exported once by ``export.export_predict`` with the uint8
+     letterbox inside and a symbolic batch, saved, loaded
+     (``export.load_artifact``) and served at 1, 8 and 16 canvases: the
+     detections and OOD scores torch.equal to the live path's (letterbox,
+     then forward_with_ood), each artifact call launching K2 once and K1
+     once; the export / save / load seconds and the artifact's MB;
+     images/s of the artifact and the live path at batch 16 and 128, a
+     window each, and a profiler window of each; the artifact loaded onto
+     the CPU; then ``examples.deploy_infer`` on the five deploy-fixture
+     JPEGs with the golden fixture's recipe of weights, on the card and
+     with --device cpu: counts, top scores and OOD scores held to each
+     other to tests/test_deploy_golden.py's tolerances, and the model's
+     head outputs on the card to the CPU's within 1.25 times the CPU's
+     own f64-vs-f32 conv-sum difference; and its images/s over 320
+     JPEGs.
 Phases 10 and 11 run with PyTorch's default cuDNN TF32 (the earlier
 phases turn it off), as a user runs the CLIs.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
@@ -149,9 +170,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
-from ood_object_detection_tpu_torch import validate
+from ood_object_detection_tpu_torch import export, validate
+from ood_object_detection_tpu_torch.data import (NativeEvalLoader,
+                                                 PilEvalLoader,
+                                                 native_decode_available,
+                                                 normalize_uint8)
 from ood_object_detection_tpu_torch.data.episodic import (
     EpisodeBuilder, EpisodicDataset, SyntheticEpisodeSource)
+from ood_object_detection_tpu_torch.examples import deploy_infer
 from ood_object_detection_tpu_torch.evaluation import (CocoEvaluator,
                                                        PascalEvaluator,
                                                        native)
@@ -178,6 +204,7 @@ from ood_object_detection_tpu_torch.train import (CheckpointManager,
                                                   create_train_state,
                                                   make_train_step, pretrain)
 from ood_object_detection_tpu_torch.train import train_state as train_state_mod
+from ood_object_detection_tpu_torch.train.checkpoint import save_variables
 from ood_object_detection_tpu_torch.train.train_state import (
     apply_gradients, detection_loss)
 from ood_object_detection_tpu_torch.utils import StepTimer, from_jax
@@ -223,6 +250,17 @@ VAL_IMAGES = 61
 VAL_BATCH = 8
 COCO_SIZES = ((480, 640), (640, 480), (427, 640), (375, 500), (612, 612))
 COCO_CATS = ((1, "person"), (3, "car"), (18, "dog"))
+# the serving path (phase 12): the batches the artifact serves and is held
+# at, the batches of its images/s windows; the deploy CLI's fixture JPEGs,
+# the copies of them in its images/s run, the golden fixture's class-bias
+# boost (tests/deploy_fixture.py) and the rows of an image it pins
+SERVE_BATCHES = (1, 8, 16)
+SERVE_RATE_BATCHES = (BATCH, 128)
+DEPLOY_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "deploy_fixture")
+DEPLOY_COPIES = 64
+DEPLOY_BOOST = ((3, 17, 42), 2.6)
+DEPLOY_TOP_ROWS = 10
 # the card as nvidia-smi names it (name, power limit), set by main(); the
 # meta path's measurements print it on their lines
 CARD = "not read"
@@ -338,13 +376,14 @@ def k1_compare(boxes, scores, soft, cluster=None, max_out=100):
     return float((kept - kept_p).abs().max())
 
 
-def canvases(batch, gen):
-    """uint8 canvases of 512 x 512, each image's valid (h, w) in [256, 512)
-    (the JAX package's predict_bench inputs, bench.py:100-104)."""
-    imgs = torch.randint(0, 256, (batch, IMG, IMG, 3), generator=gen,
-                         device="cuda", dtype=torch.uint8)
-    hw = torch.randint(IMG // 2, IMG, (batch, 2), generator=gen,
-                       device="cuda").cpu()
+def canvases(batch, gen, img=IMG, device="cuda"):
+    """uint8 canvases of img x img (512), each image's valid (h, w) in
+    [img / 2, img) (the JAX package's predict_bench inputs,
+    bench.py:100-104); the canvases on ``device``, (h, w) on the host."""
+    imgs = torch.randint(0, 256, (batch, img, img, 3), generator=gen,
+                         device=device, dtype=torch.uint8)
+    hw = torch.randint(img // 2, img, (batch, 2), generator=gen,
+                       device=device).cpu()
     return imgs, hw
 
 
@@ -1809,6 +1848,341 @@ def sync_if(on_card):
         sync()
 
 
+def serving_bench(device="cuda", img=IMG):
+    """Phase 12's model: D0 at img px (512), 90 classes, bf16, soft-NMS,
+    energy OOD, seed 0, three class biases raised by 2 (as in phase 4) so
+    that K1 has work."""
+    bench = create_model("efficientdet_d0", bench_task="predict",
+                         num_classes=NUM_CLASSES, soft_nms=True,
+                         ood_method="energy", compute_dtype="bfloat16",
+                         seed=0, device=device, image_size=(img, img))
+    with torch.no_grad():
+        bench.model.class_net.predict_bias().view(9, NUM_CLASSES)[:, :3] += 2.0
+    return bench
+
+
+def serving_inputs(batch, gen, img=IMG, device="cuda"):
+    """``canvases`` with the true (h, w) as int32, the artifact's input
+    signature."""
+    imgs, hw = canvases(batch, gen, img=img, device=device)
+    return imgs, hw.to(torch.int32)
+
+
+def live_serving(bench, imgs, hw):
+    """The artifact's function on the live bench: letterbox + normalise,
+    then forward_with_ood (no img_info: boxes in the letterboxed frame)."""
+    img = bench.config.image_size[0]
+    pre = batched_letterbox_normalize(imgs, hw, target_hw=(img, img),
+                                      out_dtype="bfloat16")
+    return bench.forward_with_ood(pre["image"])
+
+
+def serving_path(tmp, gen, device="cuda", img=IMG, batches=SERVE_BATCHES):
+    """Phase 12's drive: ``serving_bench`` exported once with the uint8
+    letterbox inside and a symbolic batch (``export.export_predict``),
+    saved to ``tmp`` and loaded onto ``device``; at each batch of canvases
+    the artifact's detections and OOD scores equal the live path's
+    (torch.equal), finite, with detections, and on the card each artifact
+    call launches K2 once and K1 once (no other kernel). Returns (the
+    bench, the loaded artifact, the artifact's directory, the export /
+    save / load seconds and its MB, the launches of each call)."""
+    on_card = torch.device(device).type == "cuda"
+    bench = serving_bench(device, img)
+    t0 = time.perf_counter()
+    ep = export.export_predict(bench, with_preproc=True)
+    seconds = {"export": time.perf_counter() - t0}
+    path = os.path.join(tmp, "serving")
+    t0 = time.perf_counter()
+    export.save_artifact(path, ep, bench)
+    seconds["save"] = time.perf_counter() - t0
+    seconds["MB"] = os.path.getsize(
+        os.path.join(path, export.ARTIFACT_FILE)) / 2 ** 20
+    with open(os.path.join(path, export.MANIFEST_FILE)) as f:
+        manifest = json.load(f)
+    check(manifest["with_preproc"] is True
+          and not manifest["input_signature"][0]["shape"][0].isdigit(),
+          f"the manifest: {manifest}")
+    del ep
+    t0 = time.perf_counter()
+    module = export.load_artifact(path, device=device)
+    sync_if(on_card)
+    seconds["load"] = time.perf_counter() - t0
+    log(f"[12] [{CARD}] export {seconds['export']:.1f} s, save "
+        f"{seconds['save']:.1f} s, load {seconds['load']:.1f} s; artifact "
+        f"{seconds['MB']:.1f} MB; manifest device {manifest['device']}, "
+        f"input {manifest['input_signature']}")
+    want = {"K1": int(on_card), "K2": int(on_card), "K3": 0, "K4": 0}
+    launches = {}
+    for batch in batches:
+        imgs, hw = serving_inputs(batch, gen, img, device)
+        sync_if(on_card)
+        reset_launches()
+        dets, ood = module(imgs, hw)
+        sync_if(on_card)
+        launches[batch] = launch_counts()
+        check(launches[batch] == want,
+              f"an artifact call at batch {batch} launched "
+              f"{launches[batch]}, not {want}")
+        ref_dets, ref_ood = live_serving(bench, imgs, hw)
+        sync_if(on_card)
+        check(tuple(dets.shape) == (batch, 100, 6)
+              and tuple(ood.shape) == (batch, 100), "artifact output shapes")
+        check(bool(torch.isfinite(dets).all())
+              and bool(torch.isfinite(ood).all()), "non-finite outputs")
+        check(torch.equal(dets, ref_dets) and torch.equal(ood, ref_ood),
+              f"the artifact differs from the live path at batch {batch}")
+        check(int((dets[..., 4] > 0).sum()) > 0, "no detections")
+    log(f"[12] served B={list(batches)}: detections and OOD scores equal to "
+        f"the live path; launches a call {launches}")
+    return bench, module, path, seconds, launches
+
+
+def artifact_on_cpu(path, gen, img=IMG):
+    """The card-exported artifact loaded onto the CPU: one image through
+    the kernels' plain versions, finite, of the right shapes, no launch."""
+    t0 = time.perf_counter()
+    module = export.load_artifact(path, device="cpu")
+    load_s = time.perf_counter() - t0
+    imgs, hw = serving_inputs(1, gen, img, gen.device)
+    reset_launches()
+    dets, ood = module(imgs.cpu(), hw)
+    check(set(launch_counts().values()) == {0},
+          "the artifact on the CPU launched a kernel")
+    check(tuple(dets.shape) == (1, 100, 6) and dets.device.type == "cpu"
+          and bool(torch.isfinite(dets).all())
+          and bool(torch.isfinite(ood).all()), "the CPU artifact's outputs")
+    log(f"[12] [{CARD}] the card-exported artifact on the CPU: loaded in "
+        f"{load_s:.1f} s, {int((dets[..., 4] > 0).sum())} detections")
+
+
+def window_rate(fn, batch):
+    """Images/s of ``fn`` (one call = ``batch`` images, each ending in a
+    synchronise) over WINDOW_S seconds after one warm-up call, and the
+    median call ms."""
+    fn()
+    sync()
+    times = []
+    start = time.perf_counter()
+    while time.perf_counter() - start < WINDOW_S:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return batch * len(times) * 1e3 / sum(times), times[len(times) // 2]
+
+
+def serving_rate(bench, module, gen):
+    """Images/s of the artifact and of the live path on the same canvases,
+    a WINDOW_S window each, at each of SERVE_RATE_BATCHES; then a profiler
+    window of each (profile_window: wall, device busy, idle share, device
+    operations kept and issued a call)."""
+    for batch in SERVE_RATE_BATCHES:
+        imgs, hw = serving_inputs(batch, gen)
+        paths = (("artifact", lambda: module(imgs, hw)),
+                 ("live", lambda: live_serving(bench, imgs, hw)))
+        for name, fn in paths:
+            rate, median = window_rate(fn, batch)
+            log(f"[12] [{CARD}] serving B={batch} {name}: {rate} images/s, "
+                f"median call {median} ms")
+        for name, fn in paths:
+            numbers, _, _ = profile_window(fn)
+            log(f"[12] [{CARD}] profile serving B={batch} {name}: " +
+                ", ".join(f"{k} {v}" for k, v in numbers.items()))
+
+
+def deploy_weights(path, device="cuda"):
+    """Weights for the deploy CLI, saved to ``path`` (train.checkpoint
+    .save_variables): the golden fixture's recipe
+    (tests/deploy_fixture.build_checkpoint) rebuilt in the port from the
+    seeded D0 at 512 px, 90 classes: every BatchNorm's running statistics
+    set to its batch statistics over 4 random images (one train-mode pass
+    at momentum 1), the class predict kernel x 0.01, the box predict
+    kernel x 0.05 and DEPLOY_BOOST's three class biases raised, so that
+    the detections depend on the image."""
+    model = create_model("efficientdet_d0", num_classes=NUM_CLASSES, seed=0,
+                         device=device)
+    with torch.no_grad():
+        norms = [m for m in model.modules() if hasattr(m, "write_stats")]
+        momenta = [m.momentum for m in norms]
+        for m in norms:
+            m.momentum = 1.0
+        calib = torch.from_numpy(np.random.default_rng(7).uniform(
+            -2, 2, (4, IMG, IMG, 3)).astype(np.float32)).to(device)
+        model.train()(calib)
+        model.eval()
+        for m, momentum in zip(norms, momenta):
+            m.momentum = momentum
+        model.class_net.predict.conv_pw.weight.mul_(0.01)
+        model.box_net.predict.conv_pw.weight.mul_(0.05)
+        classes, boost = DEPLOY_BOOST
+        model.class_net.predict_bias().view(9, NUM_CLASSES)[
+            :, list(classes)] += boost
+    save_variables(path, model.state_dict())
+
+
+@contextlib.contextmanager
+def conv_sums_in_f64():
+    """Within the block every ``F.conv2d`` takes its sum in f64 and rounds
+    it once to its input's dtype."""
+    conv2d = torch.nn.functional.conv2d
+
+    def f64(x, weight, bias=None, *args):
+        return conv2d(x.double(), weight.double(),
+                      None if bias is None else bias.double(),
+                      *args).to(x.dtype)
+
+    torch.nn.functional.conv2d = f64
+    try:
+        yield
+    finally:
+        torch.nn.functional.conv2d = conv2d
+
+
+def deploy_heads(ckpt, device, f64_sums=False):
+    """The deploy CLI's model (bf16, the weights ``ckpt``) on ``device``
+    over the five fixture JPEGs as its loader letterboxes them: every
+    class and box head output, as f32 numpy arrays. With ``f64_sums`` the
+    convolutions sum in f64 (conv_sums_in_f64)."""
+    bench = create_model("efficientdet_d0", bench_task="predict",
+                         num_classes=NUM_CLASSES, compute_dtype="bfloat16",
+                         device=device)
+    deploy_infer.load_checkpoint(bench.model, ckpt)
+    paths = sorted(os.path.join(DEPLOY_FIXTURE, f)
+                   for f in os.listdir(DEPLOY_FIXTURE) if f.endswith(".jpg"))
+    loader = (NativeEvalLoader if native_decode_available()
+              else PilEvalLoader)(paths, target_hw=(IMG, IMG),
+                                  batch_size=len(paths))
+    x = normalize_uint8(torch.from_numpy(next(iter(loader))["image"])
+                        .to(device))
+    with torch.no_grad(), (conv_sums_in_f64() if f64_sums
+                           else contextlib.nullcontext()):
+        cls, box = bench.model(x)
+    return [t.float().cpu().numpy() for t in cls + box]
+
+
+def head_gap(a, b):
+    """(mean |a - b|, the share of outputs that differ) over every head
+    output."""
+    diff = np.concatenate([np.abs(x - y).ravel() for x, y in zip(a, b)])
+    return float(diff.mean()), float(np.mean(diff > 0))
+
+
+def deploy_run(ckpt, device, tmp, image_dir=DEPLOY_FIXTURE, batch=5):
+    """``deploy_infer.main`` over ``image_dir`` with the weights ``ckpt``
+    on ``device``. Returns (its results, its summary line)."""
+    argv = ["--image-dir", image_dir, "--checkpoint", ckpt, "--batch-size",
+            str(batch), "--device", device, "--out",
+            os.path.join(tmp, f"dets_{device}.json")]
+    results, _, lines = run_driver(deploy_infer.main, argv,
+                                   f"[12] deploy {device}:")
+    sync_if(torch.device(device).type == "cuda")
+    return results, lines[0]
+
+
+def deploy_rows_match(ref, got):
+    """tests/test_deploy_golden.py's check of ``got`` (the deploy CLI's
+    results) against ``ref``: per image the counts within 12, and each of
+    ``ref``'s first DEPLOY_TOP_ROWS rows matched by a row of ``got`` of
+    the same class, the box within 3 px, the score within 0.02 and the OOD
+    score within 0.2. Returns the rows that fail."""
+    got = {os.path.basename(r["path"]): r["detections"] for r in got}
+    failed = []
+    for r in ref:
+        name, rows = os.path.basename(r["path"]), r["detections"]
+        if abs(len(got[name]) - len(rows)) > 12:
+            failed.append((name, "count", len(rows), len(got[name])))
+        for row in rows[:DEPLOY_TOP_ROWS]:
+            if not any(
+                    g["class"] == row["class"]
+                    and np.allclose(g["box_xyxy"], row["box_xyxy"], atol=3.0)
+                    and abs(g["score"] - row["score"]) <= 0.02
+                    and abs(g["ood_score"] - row["ood_score"]) <= 0.2
+                    for g in got[name]):
+                failed.append((name, row))
+    return failed
+
+
+def deploy_scores_match(ref, got):
+    """The golden's tolerances on what the deploy fixture's weights
+    determine: per image the counts within 12, and the first
+    DEPLOY_TOP_ROWS scores of ``got`` (the deploy CLI's results) against
+    ``ref``'s, each sorted, within 0.02, and those rows' OOD scores, each
+    sorted, within 0.2. Which anchor wins among rows whose scores tie to a
+    bf16 step, and so the box and class of a row, follows the f32
+    rounding of the conv sums and is not held (ROADMAP fault F3). Returns
+    the images that fail."""
+    got = {os.path.basename(r["path"]): r["detections"] for r in got}
+    failed = []
+    for r in ref:
+        name, rows = os.path.basename(r["path"]), r["detections"]
+        top = [sorted(d, key=lambda row: -row["score"])[:DEPLOY_TOP_ROWS]
+               for d in (rows, got[name])]
+        scores = [sorted(row["score"] for row in t) for t in top]
+        ood = [sorted(row["ood_score"] for row in t) for t in top]
+        if (abs(len(got[name]) - len(rows)) > 12
+                or len(scores[0]) != len(scores[1])
+                or not np.allclose(scores[0], scores[1], rtol=0, atol=0.02)
+                or not np.allclose(ood[0], ood[1], rtol=0, atol=0.2)):
+            failed.append((name, len(rows), len(got[name]), scores, ood))
+    return failed
+
+
+def deploy_path(tmp, device="cuda", copies=DEPLOY_COPIES):
+    """Phase 12's deploy drive with the weights of ``deploy_weights``:
+    ``deploy_infer.main`` over the five fixture JPEGs on ``device`` and
+    with ``--device cpu``, held to each other by ``deploy_scores_match``;
+    the rows of the CPU run that no row of the device run matches to
+    tests/test_deploy_golden.py's tolerances (``deploy_rows_match``) are
+    counted (F3). The model's head outputs on the same canvases on
+    ``device`` against the CPU's: the mean |difference| and the share
+    that differ each at most 1.25 times what taking the CPU's conv sums in
+    f64 instead of f32 moves them (``deploy_heads``). Then the CLI's
+    images/s on ``device`` over ``copies`` links to each JPEG at its
+    default batch of 8 (model build, decode, letterbox and the copy to the
+    card included). Returns (the device run's summary line, images/s)."""
+    ckpt = os.path.join(tmp, "deploy.pt")
+    deploy_weights(ckpt, device)
+    runs = {dev: deploy_run(ckpt, dev, tmp)
+            for dev in dict.fromkeys((device, "cpu"))}
+    for dev, (results, summary) in runs.items():
+        check(summary["images"] == 5 and summary["detections"] > 0,
+              f"the deploy CLI on {dev}: {summary}")
+    failed = deploy_scores_match(runs["cpu"][0], runs[device][0])
+    check(not failed, f"deploy on {device} differs from its CPU run: "
+          f"{failed[:2]}")
+    moved = deploy_rows_match(runs["cpu"][0], runs[device][0])
+    pinned = sum(min(len(r["detections"]), DEPLOY_TOP_ROWS)
+                 for r in runs["cpu"][0])
+    log(f"[12] deploy on {device} vs cpu: counts, top scores and OOD scores "
+        f"within the golden's tolerances; {len(moved)} of {pinned} top rows "
+        "of the CPU run matched by no row on the device (F3)")
+    cpu = deploy_heads(ckpt, "cpu")
+    gap = head_gap(deploy_heads(ckpt, device), cpu)
+    floor = head_gap(cpu, deploy_heads(ckpt, "cpu", f64_sums=True))
+    log(f"[12] deploy heads on {device} vs cpu: mean |difference| {gap[0]}, "
+        f"share differing {gap[1]}; the CPU's f64 vs f32 conv sums: "
+        f"{floor[0]}, {floor[1]}")
+    check(floor[1] > 0 and gap[0] <= 1.25 * floor[0]
+          and gap[1] <= 1.25 * floor[1],
+          f"deploy heads on {device} vs cpu {gap} beyond 1.25 x {floor}")
+    rate_dir = os.path.join(tmp, "deploy_rate")
+    os.makedirs(rate_dir)
+    jpegs = sorted(f for f in os.listdir(DEPLOY_FIXTURE)
+                   if f.endswith(".jpg"))
+    for i in range(copies):
+        for f in jpegs:
+            os.symlink(os.path.join(DEPLOY_FIXTURE, f),
+                       os.path.join(rate_dir, f"{i}_{f}"))
+    t0 = time.perf_counter()
+    _, summary = deploy_run(ckpt, device, tmp, image_dir=rate_dir, batch=8)
+    rate = len(jpegs) * copies / (time.perf_counter() - t0)
+    log(f"[12] [{CARD}] deploy CLI on {device}: {rate} images/s over "
+        f"{len(jpegs) * copies} images (batch 8, {summary['decoder']} "
+        "decoder; the model build and loading included)")
+    return runs[device][1], rate
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2045,6 +2419,23 @@ def main():
     sync()
     log(f"[11] phase 11 took {time.time() - t0:.1f} s")
     del trainer, episode
+
+    # 12. the serving path: D0@512 bf16 exported once (uint8 canvases in,
+    #     a symbolic batch), saved, loaded and served at 1, 8 and 16
+    #     images, equal to the live path, K2 and K1 once a call; images/s
+    #     of the artifact and the live path; the card-exported artifact on
+    #     the CPU; the deploy CLI on the card against its CPU run
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench, module, path, _, _ = serving_path(tmp, gen)
+        serving_rate(bench, module, gen)
+        del bench, module
+        torch.cuda.empty_cache()
+        artifact_on_cpu(path, gen)
+        deploy_path(tmp)
+    sync()
+    log(f"[12] phase 12 took {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",

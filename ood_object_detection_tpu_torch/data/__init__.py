@@ -1,6 +1,5 @@
 """Host data pipeline, on-device input preprocessing and episode assembly
-(port of ``ood_object_detection_tpu.data``; the native JPEG decode is
-ROADMAP Queue 1 item 4)."""
+(port of ``ood_object_detection_tpu.data``)."""
 from .dataset import (
     DetectionDataset,
     PrefetchLoader,
@@ -20,6 +19,13 @@ from .episodic import (
     SyntheticEpisodeSource,
 )
 from .input_config import resolve_input_config
+from .native_decode import (
+    NativeEvalLoader,
+    PilEvalLoader,
+    available as native_decode_available,
+    decode_jpeg,
+    load_letterbox_batch,
+)
 from .metadata import (
     build_category_pools,
     directory_support_source,

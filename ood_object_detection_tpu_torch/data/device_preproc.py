@@ -14,11 +14,14 @@ scale - 0.5``. The resampled block is exactly the valid region, ``floor
 given computes it. (``F.interpolate`` with a scale factor sizes its output
 by the same floor in double, one row or column short where the f32 scale
 rounds below ``target / side``.) The scale differs per image, so it is a
-host number and each image is one call.
+host number and each image is one call. The loop sits behind the custom
+operator ``ood_detection::letterbox_normalize`` so that ``torch.export``
+can take the letterbox into a serving artifact (``export.py``); it is
+stock PyTorch inside, not a kernel of the port.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -42,16 +45,35 @@ def batched_letterbox_normalize(
     'img_size': [B, 2] f32 (w, h) original}, all on the canvases' device.
 
     The resample runs in f32 for either ``out_dtype``; the fill and the
-    normalisation run in ``out_dtype``, as in the JAX function.
+    normalisation run in ``out_dtype``, as in the JAX function. Runs the
+    operator ``ood_detection::letterbox_normalize``.
     """
     if canvases.dim() != 4 or canvases.shape[3] != 3 or \
             canvases.dtype != torch.uint8:
         raise ValueError(f"canvases must be [B, H, W, 3] uint8, not "
                          f"{tuple(canvases.shape)} {canvases.dtype}")
     th, tw = target_hw
+    image, img_scale, img_size = _letterbox_op(
+        canvases, torch.as_tensor(true_hw), int(th), int(tw),
+        [float(v) for v in mean], [float(v) for v in std],
+        [float(v) for v in fill_color], out_dtype)
+    return {"image": image, "img_scale": img_scale, "img_size": img_size}
+
+
+# The per-image loop reads each image's scaled size as a host number, a
+# data-dependent shape that ``torch.export`` cannot trace; behind a custom
+# operator (stock PyTorch ops inside, on every device) the exported program
+# keeps one opaque call, and its fake implementation gives the shapes.
+@torch.library.custom_op("ood_detection::letterbox_normalize",
+                         mutates_args=())
+def _letterbox_op(canvases: torch.Tensor, true_hw: torch.Tensor,
+                  target_h: int, target_w: int, mean: List[float],
+                  std: List[float], fill_color: List[float], out_dtype: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    th, tw = target_h, target_w
     dtype = getattr(torch, out_dtype)
     device = canvases.device
-    hw = torch.as_tensor(true_hw).to("cpu", torch.float32)
+    hw = true_hw.to("cpu", torch.float32)
     # tensor over tensor: a Python number over a tensor is computed as a
     # multiply by the reciprocal, one f32 step away from the quotient
     scale = torch.minimum(torch.full_like(hw[:, 0], th) / hw[:, 0],
@@ -77,11 +99,17 @@ def batched_letterbox_normalize(
     std_inv = (1.0 / (torch.tensor(std, dtype=torch.float32) * 255.0)
                ).to(dtype)
     images = (images - mean_t.to(device)) * std_inv.to(device)
-    return {
-        "image": images,
-        "img_scale": (1.0 / scale)[:, None].to(device),
-        "img_size": hw.flip(-1).to(device),
-    }
+    return images, (1.0 / scale)[:, None].to(device), hw.flip(-1).to(device)
+
+
+@_letterbox_op.register_fake
+def _letterbox_fake(canvases, true_hw, target_h, target_w, mean, std,
+                    fill_color, out_dtype):
+    b = canvases.shape[0]
+    return (canvases.new_empty((b, target_h, target_w, 3),
+                               dtype=getattr(torch, out_dtype)),
+            canvases.new_empty((b, 1), dtype=torch.float32),
+            canvases.new_empty((b, 2), dtype=torch.float32))
 
 
 def normalize_uint8(images: torch.Tensor,

@@ -11,9 +11,12 @@ step's plain torch port.
 ``batch_match_plain`` and ``batch_codes_targets_plain`` (``label_match``,
 then ``batch_targets_plain``) are the kernels' plain versions. For tensors
 on the CPU the wrappers run them; for CUDA tensors they launch the kernel
-or raise. Ties are resolved explicitly, as in the JAX package: per anchor
-the lowest row with the max IoU, per row the lowest anchor with the row's
-max, and force-match gives a contested anchor to the lowest row.
+or raise. Each pair sits behind a custom operator
+(``ood_detection::batch_match``, ``ood_detection::batch_codes_targets``)
+whose fake implementation gives the shapes alone. Ties are resolved
+explicitly, as in the JAX package: per anchor the lowest row with the max
+IoU, per row the lowest anchor with the row's max, and force-match gives
+a contested anchor to the lowest row.
 """
 from __future__ import annotations
 
@@ -203,14 +206,19 @@ def _match_launcher():
     return fn
 
 
-def batch_match(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
-                valid: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3: as ``batch_match_plain``; on CUDA one launch for the batch, a
-    cluster of MATCH_CLUSTER CTAs an image, nothing allocated but the
-    outputs."""
-    if all(t.device.type == "cpu" for t in (anchor_boxes, gt_boxes, valid)):
-        return batch_match_plain(anchor_boxes, gt_boxes, valid)
+# Two operators, ``ood_detection::batch_match`` (K3) and
+# ``ood_detection::batch_codes_targets`` (K4): the plain versions for CPU
+# tensors, the kernels for CUDA tensors, shapes only for fake tensors.
+@torch.library.custom_op("ood_detection::batch_match", mutates_args=(),
+                         device_types="cpu")
+def _match_op(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+              valid: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return batch_match_plain(anchor_boxes, gt_boxes, valid)
+
+
+@_match_op.register_kernel("cuda")
+def _match_cuda(anchor_boxes, gt_boxes, valid):
     b, m, a = _check(anchor_boxes, gt_boxes, valid=valid)
     dev = anchor_boxes.device
     vals = torch.empty((b, a), dtype=torch.float32, device=dev)
@@ -227,6 +235,24 @@ def batch_match(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     return vals, rows, best
 
 
+@_match_op.register_fake
+def _match_fake(anchor_boxes, gt_boxes, valid):
+    b, m = gt_boxes.shape[:2]
+    a = anchor_boxes.shape[0]
+    return (gt_boxes.new_empty((b, a)),
+            gt_boxes.new_empty((b, a), dtype=torch.int32),
+            gt_boxes.new_empty((b, m), dtype=torch.int32))
+
+
+def batch_match(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                valid: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: as ``batch_match_plain``; on CUDA one launch for the batch, a
+    cluster of MATCH_CLUSTER CTAs an image, nothing allocated but the
+    outputs. Runs the operator ``ood_detection::batch_match``."""
+    return _match_op(anchor_boxes, gt_boxes, valid)
+
+
 batch_match.launches = 0
 
 
@@ -239,25 +265,26 @@ def _targets_launcher():
     return fn
 
 
-def batch_codes_targets(
-        anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
-        gt_classes: torch.Tensor, valid: torch.Tensor,
-        matched_vals: torch.Tensor, matches: torch.Tensor,
-        best_anchor: torch.Tensor, matched_threshold: float,
-        unmatched_threshold: float
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4: as ``batch_codes_targets_plain``, from K3's outputs (matched
-    values, rows, best anchors); on CUDA one kernel launch for the batch
-    (after a memset of the positive counts), nothing allocated but the
-    outputs. The thresholds are compared in f32, as the plain version
-    compares an f32 tensor with them."""
+@torch.library.custom_op("ood_detection::batch_codes_targets",
+                         mutates_args=(), device_types="cpu")
+def _targets_op(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                gt_classes: torch.Tensor, valid: torch.Tensor,
+                matched_vals: torch.Tensor, matches: torch.Tensor,
+                best_anchor: torch.Tensor, matched_threshold: float,
+                unmatched_threshold: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    return batch_codes_targets_plain(
+        anchor_boxes, gt_boxes, gt_classes, valid, matched_vals, matches,
+        best_anchor, matched_threshold, unmatched_threshold)
+
+
+@_targets_op.register_kernel("cuda")
+def _targets_cuda(anchor_boxes, gt_boxes, gt_classes, valid, matched_vals,
+                  matches, best_anchor, matched_threshold,
+                  unmatched_threshold):
     tensors = (gt_boxes, gt_classes, valid, matched_vals, matches,
                best_anchor)
-    if anchor_boxes.device.type == "cpu" and \
-            all(t.device.type == "cpu" for t in tensors):
-        return batch_codes_targets_plain(anchor_boxes, *tensors,
-                                         matched_threshold,
-                                         unmatched_threshold)
     b, m, a = _check(anchor_boxes, gt_boxes, gt_classes=gt_classes,
                      valid=valid, matched_vals=matched_vals, matches=matches,
                      best_anchor=best_anchor)
@@ -279,6 +306,33 @@ def batch_codes_targets(
                            f"error {err}")
     cuda_build.count_launch(batch_codes_targets)
     return codes, cls_targets, box_targets, num_positives
+
+
+@_targets_op.register_fake
+def _targets_fake(anchor_boxes, gt_boxes, gt_classes, valid, matched_vals,
+                  matches, best_anchor, matched_threshold,
+                  unmatched_threshold):
+    b, a = matches.shape
+    return (matches.new_empty((b, a)), matches.new_empty((b, a)),
+            gt_boxes.new_empty((b, a, 4)), gt_boxes.new_empty((b,)))
+
+
+def batch_codes_targets(
+        anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+        gt_classes: torch.Tensor, valid: torch.Tensor,
+        matched_vals: torch.Tensor, matches: torch.Tensor,
+        best_anchor: torch.Tensor, matched_threshold: float,
+        unmatched_threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: as ``batch_codes_targets_plain``, from K3's outputs (matched
+    values, rows, best anchors); on CUDA one kernel launch for the batch
+    (after a memset of the positive counts), nothing allocated but the
+    outputs. The thresholds are compared in f32, as the plain version
+    compares an f32 tensor with them. Runs the operator
+    ``ood_detection::batch_codes_targets``."""
+    return _targets_op(anchor_boxes, gt_boxes, gt_classes, valid,
+                       matched_vals, matches, best_anchor,
+                       float(matched_threshold), float(unmatched_threshold))
 
 
 batch_codes_targets.launches = 0

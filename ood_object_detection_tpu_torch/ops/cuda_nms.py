@@ -3,7 +3,9 @@
 Replaces the Pallas TPU kernel ``pallas_batched_nms``
 (ood_object_detection_tpu/ops/pallas_nms.py:77). For tensors on the CPU
 the wrapper runs the plain version, ``ops.nms.batched_nms_plain``; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. Both sit behind the custom
+operator ``ood_detection::batched_nms``, whose fake implementation gives
+the shapes alone, so that an exported program keeps the call.
 
 The kernel spreads an image over one block, or over a thread block
 cluster of 2, 4 or 8 blocks on neighbouring SMs when the batch would leave
@@ -82,25 +84,11 @@ def device_cluster_size(device: int, batch: int, n: int) -> int:
     return cluster_size(batch, sms, lambda c: resident_images(device, n, c))
 
 
-def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
-                max_out: int = 100, iou_threshold: float = 0.5,
-                soft: bool = False, sigma: float = 0.5,
-                score_threshold: float = 0.001,
-                cluster: Optional[int] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """boxes [B, N, 4] f32 xyxy (class-offset), scores [B, N] f32 ->
-    (keep_idx [B, max_out] int32 with -1 padding, kept scores
-    [B, max_out] f32). Hard NMS, or gaussian soft-NMS with ``soft``.
-    ``cluster`` forces the CTAs an image (for holding every size against
-    the plain version); by default ``device_cluster_size`` picks it."""
-    if cluster is not None:
-        check_cluster(cluster)
-    if boxes.device.type == "cpu" and scores.device.type == "cpu":
-        return batched_nms_plain(boxes, scores, max_out, iou_threshold, soft,
-                                 sigma, score_threshold)
-    if boxes.device.type != "cuda" or scores.device != boxes.device:
-        raise ValueError(f"boxes on {boxes.device}, scores on "
-                         f"{scores.device}: both must be on one CUDA device")
+def _check_inputs(boxes: torch.Tensor, scores: torch.Tensor,
+                  max_out: int) -> None:
+    """What the kernel takes: float32 [B, N, 4] boxes and [B, N] scores,
+    N within a block's shared memory. Shapes and dtypes only, so that a
+    fake tensor passes it at export."""
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"boxes {boxes.dtype}, scores {scores.dtype}: "
                         "the kernel takes float32")
@@ -114,8 +102,31 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     if n > MAX_CANDIDATES:
         raise ValueError(f"N={n} candidates do not fit a block's shared "
                          f"memory (at most {MAX_CANDIDATES})")
+
+
+# One operator, ``ood_detection::batched_nms``: the plain version for CPU
+# tensors, the kernel for CUDA tensors, shapes only for fake tensors (so
+# that ``torch.export`` records the call and the artifact launches K1).
+@torch.library.custom_op("ood_detection::batched_nms", mutates_args=(),
+                         device_types="cpu")
+def _nms_op(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+            iou_threshold: float, soft: bool, sigma: float,
+            score_threshold: float, cluster: Optional[int]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return batched_nms_plain(boxes, scores, max_out, iou_threshold, soft,
+                             sigma, score_threshold)
+
+
+@_nms_op.register_kernel("cuda")
+def _nms_cuda(boxes, scores, max_out, iou_threshold, soft, sigma,
+              score_threshold, cluster):
+    if boxes.device.type != "cuda" or scores.device != boxes.device:
+        raise ValueError(f"boxes on {boxes.device}, scores on "
+                         f"{scores.device}: both must be on one CUDA device")
+    _check_inputs(boxes, scores, max_out)
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
+    b, n = scores.shape
     if cluster is None:
         dev = boxes.device.index if boxes.device.index is not None else \
             torch.cuda.current_device()
@@ -135,6 +146,33 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                            f"CUDA error {err}")
     cuda_build.count_launch(batched_nms)
     return keep_idx, keep_scores
+
+
+@_nms_op.register_fake
+def _nms_fake(boxes, scores, max_out, iou_threshold, soft, sigma,
+              score_threshold, cluster):
+    _check_inputs(boxes, scores, max_out)
+    b = scores.shape[0]
+    return (scores.new_empty((b, max_out), dtype=torch.int32),
+            scores.new_empty((b, max_out), dtype=torch.float32))
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                max_out: int = 100, iou_threshold: float = 0.5,
+                soft: bool = False, sigma: float = 0.5,
+                score_threshold: float = 0.001,
+                cluster: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """boxes [B, N, 4] f32 xyxy (class-offset), scores [B, N] f32 ->
+    (keep_idx [B, max_out] int32 with -1 padding, kept scores
+    [B, max_out] f32). Hard NMS, or gaussian soft-NMS with ``soft``.
+    ``cluster`` forces the CTAs an image (for holding every size against
+    the plain version); by default ``device_cluster_size`` picks it.
+    Runs the operator ``ood_detection::batched_nms``."""
+    if cluster is not None:
+        check_cluster(cluster)
+    return _nms_op(boxes, scores, max_out, float(iou_threshold), bool(soft),
+                   float(sigma), float(score_threshold), cluster)
 
 
 batched_nms.launches = 0

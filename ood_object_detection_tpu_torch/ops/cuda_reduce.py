@@ -10,8 +10,11 @@ such fusion, so in the port this kernel is that pass.
 ``key_energy_reduce_plain`` is the plain version: the torch translation of
 ``_packed_f32_key_reduce`` with the energy of ``_anchor_ood_reduce``. For
 tensors on the CPU the wrapper runs it; for CUDA tensors it launches the
-kernel, once for all pyramid levels, or raises. ``tile_plan`` cuts the
-levels into the tiles the kernel's persistent grid walks.
+kernel, once for all pyramid levels, or raises. Both sit behind the custom
+operator ``ood_detection::key_energy_reduce``, whose fake implementation
+gives the shapes alone, so that an exported program keeps the call.
+``tile_plan`` cuts the levels into the tiles the kernel's persistent grid
+walks.
 """
 from __future__ import annotations
 
@@ -100,8 +103,10 @@ def _split_shape(shape: Tuple[int, ...], num_classes: int) -> Tuple[int, int]:
 
 
 def _check(cls_outputs: List[torch.Tensor], num_classes: int) -> None:
-    """What the kernel takes, held on every device: bf16, at most 256
-    classes, and each level 16-byte aligned (the bulk copies' rule)."""
+    """What the kernel takes, held on every device: bf16 and at most 256
+    classes. Dtypes and numbers only, so that a fake tensor passes it at
+    export; the alignment is held where the memory is real
+    (``_check_aligned``)."""
     if not 0 < num_classes <= 256:
         raise ValueError(f"the packed key holds at most 256 classes, "
                          f"not {num_classes}")
@@ -109,6 +114,12 @@ def _check(cls_outputs: List[torch.Tensor], num_classes: int) -> None:
         if lvl.dtype != torch.bfloat16:
             raise TypeError(f"the packed key reads bf16 logits, not "
                             f"{lvl.dtype}")
+
+
+def _check_aligned(cls_outputs: List[torch.Tensor]) -> None:
+    """Each level 16-byte aligned (the bulk copies' rule), held on every
+    device by the operator's implementations."""
+    for lvl in cls_outputs:
         if lvl.data_ptr() % 16:
             raise ValueError(f"level {tuple(lvl.shape)} starts at "
                              f"{lvl.data_ptr():#x}, not 16-byte aligned")
@@ -125,6 +136,7 @@ def key_energy_reduce_plain(cls_outputs: List[torch.Tensor],
     the lowest class, exact in f32 (< 2^24).
     """
     _check(cls_outputs, num_classes)
+    _check_aligned(cls_outputs)
     keys, energies = [], []
     for lvl in cls_outputs:
         b, _ = _split_shape(tuple(lvl.shape), num_classes)
@@ -150,20 +162,22 @@ def _launcher():
     return fn
 
 
-def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
-                      energy: bool
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """As ``key_energy_reduce_plain``; on CUDA one kernel launch for all
-    levels.
+# One operator, ``ood_detection::key_energy_reduce``: the plain version
+# for CPU tensors, the kernel for CUDA tensors, shapes only for fake
+# tensors (so that ``torch.export`` records the call). An operator returns
+# no None, so without ``energy`` its second output is an empty [B, 0].
+@torch.library.custom_op("ood_detection::key_energy_reduce", mutates_args=(),
+                         device_types="cpu")
+def _reduce_op(cls_outputs: List[torch.Tensor], num_classes: int,
+               energy: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    key_all, energy_all = key_energy_reduce_plain(cls_outputs, num_classes,
+                                                  energy)
+    return key_all, (energy_all if energy else key_all.new_empty(
+        (key_all.shape[0], 0)))
 
-    Each level must be the NHWC view of a channels_last head output,
-    contiguous in that view and 16-byte aligned: the kernel copies it in
-    place, and a quiet copy of the logits (over 1 GB at D0@512, batch 128)
-    is refused.
-    """
-    _check(cls_outputs, num_classes)
-    if all(lvl.device.type == "cpu" for lvl in cls_outputs):
-        return key_energy_reduce_plain(cls_outputs, num_classes, energy)
+
+@_reduce_op.register_kernel("cuda")
+def _reduce_cuda(cls_outputs, num_classes, energy):
     device = cls_outputs[0].device
     for lvl in cls_outputs:
         if lvl.device != device or device.type != "cuda":
@@ -173,12 +187,13 @@ def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
             raise ValueError(
                 f"level {tuple(lvl.shape)} is not contiguous as NHWC; pass "
                 "the permute(0, 2, 3, 1) view of a channels_last output")
+    _check_aligned(cls_outputs)
     plan = tile_plan([tuple(lvl.shape) for lvl in cls_outputs], num_classes)
     batch = cls_outputs[0].shape[0]
     key_all = torch.empty((batch, plan.a_total), dtype=torch.float32,
                           device=device)
-    energy_all = (torch.empty((batch, plan.a_total), dtype=torch.float32,
-                              device=device) if energy else None)
+    energy_all = torch.empty((batch, plan.a_total if energy else 0),
+                             dtype=torch.float32, device=device)
     if plan.total_tiles == 0:               # no anchors: nothing to launch
         return key_all, energy_all
     n = len(cls_outputs)
@@ -198,6 +213,32 @@ def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
         raise RuntimeError(f"key/energy kernel launch failed: CUDA error {err}")
     cuda_build.count_launch(key_energy_reduce)
     return key_all, energy_all
+
+
+@_reduce_op.register_fake
+def _reduce_fake(cls_outputs, num_classes, energy):
+    batch = cls_outputs[0].shape[0]
+    a_total = sum(_split_shape(tuple(lvl.shape), num_classes)[1]
+                  for lvl in cls_outputs)
+    out = cls_outputs[0].new_empty((batch, a_total), dtype=torch.float32)
+    return out, out.new_empty((batch, a_total if energy else 0))
+
+
+def key_energy_reduce(cls_outputs: List[torch.Tensor], num_classes: int,
+                      energy: bool
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """As ``key_energy_reduce_plain``; on CUDA one kernel launch for all
+    levels. Runs the operator ``ood_detection::key_energy_reduce``.
+
+    Each level must be the NHWC view of a channels_last head output,
+    contiguous in that view and 16-byte aligned: the kernel copies it in
+    place, and a quiet copy of the logits (over 1 GB at D0@512, batch 128)
+    is refused.
+    """
+    _check(cls_outputs, num_classes)
+    key_all, energy_all = _reduce_op(list(cls_outputs), num_classes,
+                                     bool(energy))
+    return key_all, (energy_all if energy else None)
 
 
 key_energy_reduce.launches = 0

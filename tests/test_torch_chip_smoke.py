@@ -7,6 +7,7 @@ import json
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -225,3 +226,78 @@ def test_meta_driver_rate_drive_runs_on_the_cpu(tmp_path):
     assert [e["iter"] for e in logs if "eps_per_sec" in e] == [4, 8, 12]
     assert all(e["eps_per_sec"] > 0 for e in logs if "eps_per_sec" in e)
     assert logs[-1]["final_iter"] == 12
+
+
+def test_serving_path_drive_runs_on_the_cpu(tmp_path):
+    """Phase 12's drives on the CPU: D0 at 128 px exported once with the
+    letterbox inside and a symbolic batch, saved, loaded with
+    ``device="cpu"`` and served at batches 1 and 3, equal to the live path
+    (serving_path); the artifact loaded again onto the CPU
+    (artifact_on_cpu); the deploy CLI with the golden fixture's weights
+    rebuilt in the port (deploy_weights) on the five JPEGs and over one
+    copy of them, and the model's head outputs against its run with the
+    conv sums in f64 (deploy_path). The plain versions launch nothing."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        # the first energy reduce of a CPU process can round differently
+        # from the later ones (tests/test_torch_export.py); serving_path
+        # holds the artifact to the live path bit for bit, so a throwaway
+        # forward comes first
+        chip_smoke.live_serving(chip_smoke.serving_bench("cpu", 128),
+                                *chip_smoke.serving_inputs(1, gen, 128, "cpu"))
+        bench, module, path, seconds, launches = chip_smoke.serving_path(
+            str(tmp_path), gen, device="cpu", img=128, batches=(1, 3))
+        chip_smoke.artifact_on_cpu(path, gen, img=128)
+        summary, rate = chip_smoke.deploy_path(str(tmp_path), device="cpu",
+                                               copies=1)
+    assert set(seconds) == {"export", "save", "load", "MB"}
+    assert all(set(v.values()) == {0} for v in launches.values())
+    assert summary["images"] == 5 and summary["device"] == "cpu"
+    assert summary["decoder"] in ("native", "pil") and rate > 0
+
+
+def test_deploy_rows_match_holds_the_golden_tolerances():
+    """The deploy comparison of phase 12: a row moved by 2 px, 0.01 in
+    score and 0.1 in OOD still matches; 4 px, another class or a count off
+    by 13 does not."""
+    row = {"box_xyxy": [10.0, 20.0, 50.0, 80.0], "score": 0.5, "class": 3,
+           "ood_score": 1.0}
+    near = dict(row, box_xyxy=[12.0, 18.0, 52.0, 78.0], score=0.51,
+                ood_score=1.1)
+    ref = [{"path": "a/x.jpg", "detections": [row]}]
+    assert chip_smoke.deploy_rows_match(
+        ref, [{"path": "b/x.jpg", "detections": [near]}]) == []
+    for bad in (dict(near, box_xyxy=[14.0, 20.0, 50.0, 80.0]),
+                dict(near, **{"class": 4})):
+        assert len(chip_smoke.deploy_rows_match(
+            ref, [{"path": "x.jpg", "detections": [bad]}])) == 1
+    many = [{"path": "x.jpg", "detections": [near] * 14}]
+    assert chip_smoke.deploy_rows_match(ref, many) == [
+        ("x.jpg", "count", 1, 14)]
+
+
+def test_deploy_scores_match_holds_what_the_fixture_determines():
+    """Phase 12's deploy comparison: the top rows' scores and OOD scores,
+    each sorted, within 0.02 and 0.2 and the counts within 12 pass, wherever
+    the boxes and classes went; a top score 0.03 off, an OOD score 0.3
+    beyond the others' or a count off by 13 does not."""
+    rows = [{"box_xyxy": [10.0 * i, 0.0, 10.0 * i + 5, 5.0],
+             "score": 0.5 - 0.01 * i, "class": 3, "ood_score": 1.0 + 0.1 * i}
+            for i in range(12)]
+    moved = [dict(r, box_xyxy=[0.0, 0.0, 1.0, 1.0], **{"class": 4},
+                  score=r["score"] + 0.015) for r in reversed(rows)]
+    ref = [{"path": "a/x.jpg", "detections": rows}]
+    assert chip_smoke.deploy_scores_match(
+        ref, [{"path": "b/x.jpg", "detections": moved}]) == []
+    for bad in ([dict(rows[0], score=0.53)] + rows[1:],
+                [dict(rows[0], ood_score=2.2)] + rows[1:],
+                rows + rows[:1] * 13):
+        assert len(chip_smoke.deploy_scores_match(
+            ref, [{"path": "x.jpg", "detections": bad}])) == 1
+
+
+def test_head_gap_reads_mean_and_share():
+    a = [np.zeros((2, 3), np.float32), np.ones(4, np.float32)]
+    b = [np.zeros((2, 3), np.float32), np.array([1, 1, 1, 3], np.float32)]
+    assert chip_smoke.head_gap(a, b) == pytest.approx((0.2, 0.1))
+    assert chip_smoke.head_gap(a, a) == (0.0, 0.0)

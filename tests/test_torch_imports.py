@@ -56,6 +56,10 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.meta.train_driver",
     "ood_object_detection_tpu_torch.utils",
     "ood_object_detection_tpu_torch.utils.profiling",
+    "ood_object_detection_tpu_torch.export",
+    "ood_object_detection_tpu_torch.data.native_decode",
+    "ood_object_detection_tpu_torch.examples",
+    "ood_object_detection_tpu_torch.examples.deploy_infer",
 )
 
 
@@ -157,3 +161,27 @@ def test_training_drivers_without_device_need_cuda(monkeypatch, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(["--checkpoint-dir", str(tmp_path)])
+
+
+def test_deploy_cli_without_device_needs_cuda(monkeypatch):
+    """The deploy CLI runs on the card unless ``--device cpu``."""
+    from ood_object_detection_tpu_torch.examples import deploy_infer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deploy_infer.main(["--image-dir", str(ROOT / "tests" / "data" /
+                                              "deploy_fixture")])
+
+
+def test_importing_the_package_stays_light():
+    """The top-level export names resolve lazily: importing the package
+    loads no model, ops or export module."""
+    code = ("import sys, ood_object_detection_tpu_torch as p\n"
+            "heavy = [m for m in sys.modules if m.startswith("
+            "('ood_object_detection_tpu_torch.models', "
+            "'ood_object_detection_tpu_torch.ops', "
+            "'ood_object_detection_tpu_torch.export'))]\n"
+            "assert not heavy, heavy\n"
+            "assert callable(p.export_predict)\n"
+            "assert 'ood_object_detection_tpu_torch.export' in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
