@@ -4,7 +4,8 @@ hand-written kernels against their plain PyTorch versions.
 
 Predict, train and validate run EfficientDet-D0 at its full width (512 x
 512 input, 90 classes, bf16 compute), random weights from a seed (the
-meta path, phase 8, its meta model):
+meta path, phase 8, its meta model; phase 13 the other families of the
+zoo):
   - predict (gaussian soft-NMS, energy OOD, 5000 candidates, 100
     detections): uint8 canvases -> letterbox + normalise -> forward -> K2
     (packed key + energy reduce) -> top-k -> decode -> K1 (NMS) ->
@@ -133,12 +134,35 @@ Phases, each synchronised so that a fault shows where it happened:
      head outputs on the card to the CPU's within 1.25 times the CPU's
      own f64-vs-f32 conv-sum difference; and its images/s over 320
      JPEGs.
-Phases 10 and 11 run with PyTorch's default cuDNN TF32 (the earlier
+ 13. model breadth: (a) CSPResDet-50 (CSPResNet-50, leaky-ReLU, SiLU
+     plain-conv heads, bilinear upsampling, 76,725 anchors) at 640 px,
+     90 classes, bf16, soft-NMS, energy, three class biases raised,
+     through create_model(..., bench_task="predict"): 3 requests of 16
+     canvases, K2 and K1 once a request, finite outputs with detections,
+     the plain path equal on the last batch; K1 / K2 timed beside their
+     bounds, end to end at batch 16 and 64 with profiler windows (as
+     phase 5); (b) ``train.pretrain.main --model cspresdet50`` (f32,
+     batch 16, synthetic data, 8 steps, --eval-map every 4): finite
+     losses and val_mAP, K3 / K4 once a train step and a val batch, K1
+     once a val batch; img_per_sec, the median step, the peak memory;
+     (c) ``train.pretrain.main --model efficientdet_d4 --dropout 0.2``
+     (1024 px, 196,416 anchors, f32, batch 4, 3 steps) plain and with
+     --remat 3 --remat-fpn-heads from the same seed: step 1's loss and
+     grad_norm within 1e-5 relative, the BatchNorm statistics after step
+     1 within 1e-6, the rematted run's peak memory lower; K3 / K4 at
+     196,416 anchors against their plain versions and timed; (d) each of
+     the 19 zoo entries of ZOO_SWEEP at full width and its published
+     size, 90 classes, bf16, batch 2: one request through K2 -> K1 (once
+     each), finite outputs of their shapes; build s, request ms and peak
+     memory, a line an entry.
+Phases 10, 11 and 13 run with PyTorch's default cuDNN TF32 (the earlier
 phases turn it off), as a user runs the CLIs.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
 K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
-episode's query labels through the kernels against the plain ones, and
-K1 at the validate path's [8, 5000] and [5, 5000].
+episode's query labels through the kernels against the plain ones, K1
+at the validate path's [8, 5000] and [5, 5000], and at phase 13's shapes
+K2 on 640 px levels (batch 16, 64) and 1024 px levels (batch 2, 4) and
+K3 -> K4 at 196,416 anchors (batch 4, 16) with the hazard rows.
 
 Phase 1 also logs whether PIL imports, whether libjpeg and g++ are found.
 Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
@@ -261,6 +285,26 @@ DEPLOY_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DEPLOY_COPIES = 64
 DEPLOY_BOOST = ((3, 17, 42), 2.6)
 DEPLOY_TOP_ROWS = 10
+# model breadth (phase 13): the predict / pretrain model at full width and
+# its image size, the batches of its images/s windows and its pretrain
+# batch; the remat pair's model (196,416 anchors at 1024 px) and batch; the
+# zoo entries that the sweep answers one request each with
+BREADTH_MODEL = "cspresdet50"
+BREADTH_IMG = 640
+BREADTH_RATE_BATCHES = (BATCH, 64)
+BREADTH_TRAIN_BATCH = 16
+REMAT_MODEL = "efficientdet_d4"
+REMAT_IMG = 1024
+REMAT_BATCH = 4
+REMAT_ANCHORS = 196416
+ZOO_SWEEP = (
+    "resdet50", "cspresdet50", "cspresdext50", "cspresdext50pan",
+    "cspdarkdet53", "mixdet_m", "mixdet_l", "mobiledetv2_110d",
+    "mobiledetv2_120d", "mobiledetv3_large", "efficientdet_w0",
+    "efficientdet_es", "efficientdet_em", "efficientdet_lite0",
+    "tf_efficientdet_lite0", "tf_efficientdet_lite1",
+    "tf_efficientdet_lite2", "tf_efficientdet_lite3",
+    "tf_efficientdet_lite4")
 # the card as nvidia-smi names it (name, power limit), set by main(); the
 # meta path's measurements print it on their lines
 CARD = "not read"
@@ -349,7 +393,7 @@ def k2_compare(levels, energy=True, num_classes=NUM_CLASSES):
     key, en = cuda_reduce.key_energy_reduce(levels, num_classes, energy)
     key_p, en_p = cuda_reduce.key_energy_reduce_plain(
         levels, num_classes, energy)
-    sync()
+    sync_if(levels[0].is_cuda)
     check(torch.equal(key, key_p), "K2 key differs from the plain version")
     if not energy:
         check(en is None, "K2 returned an energy it was not asked for")
@@ -2183,6 +2227,353 @@ def deploy_path(tmp, device="cuda", copies=DEPLOY_COPIES):
     return runs[device][1], rate
 
 
+def plain_path_compare(bench, pre, tag="[4]"):
+    """The predict path's kernels against their plain versions on one
+    letterboxed batch ``pre``: K2 (k2_compare) and the candidates it
+    selects bit for bit (energies to rtol 1e-5), then K1's keep indices
+    equal and detections to 1e-4 (soft-NMS). Returns (class outputs, box
+    outputs, the kernel path's candidates, (img_scale, img_size), K1's
+    score max abs error, K2's energy max abs error)."""
+    num_classes = bench.config.num_classes
+    cls, box = bench.model(pre["image"])
+    err_k2 = k2_compare(cls, num_classes=num_classes)
+    cand_k, cand_p = (pp.select_candidates(
+        cls, box, bench.anchors, num_classes, 5000, "energy", kernels=k)
+        for k in (True, False))
+    # the selection is bit-exact; the energies agree to f32 summation order
+    check(all(torch.equal(a, b) for a, b in zip(cand_k[:-1], cand_p[:-1])),
+          f"{tag} candidates differ between K2 and its plain version")
+    check(torch.allclose(cand_k.ood_all, cand_p.ood_all, rtol=1e-5,
+                         atol=1e-5), f"{tag} energies differ beyond rtol 1e-5")
+    info = (pre["img_scale"], pre["img_size"])
+    dets_k, keep_k = pp.batch_detection(*cand_k[:4], *info, soft_nms=True,
+                                        kernels=True)
+    dets_p, keep_p = pp.batch_detection(*cand_p[:4], *info, soft_nms=True,
+                                        kernels=False)
+    sync_if(dets_k.is_cuda)
+    check(torch.equal(keep_k, keep_p), f"{tag} keep indices differ")
+    err_k1 = float((dets_k[..., 4] - dets_p[..., 4]).abs().max())
+    check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
+          f"{tag} detections differ between the kernel and plain paths")
+    log(f"{tag} plain path on the same batch: equal candidates and keep "
+        f"indices ({int((keep_k >= 0).sum())} kept), score max abs err "
+        f"{err_k1:.3g}")
+    return cls, box, cand_k, info, err_k1, err_k2
+
+
+def breadth_predict(gen, device="cuda", img=BREADTH_IMG, batch=BATCH):
+    """Phase 13 (a): BREADTH_MODEL (CSPResDet-50: CSPResNet-50 with
+    leaky-ReLU, SiLU heads, plain 3 x 3 head convs, bilinear upsampling,
+    aspect ratios (1, 2, 0.5)) at ``img`` px, 90 classes, bf16, soft-NMS,
+    energy OOD, three class biases raised by 2, through
+    ``create_model(..., bench_task="predict")``: 3 requests of ``batch``
+    uint8 canvases (letterbox -> forward -> K2 -> top-k -> K1);
+    on the card K2 and K1 once a request; finite outputs of their shapes
+    with detections; the plain path on the last batch
+    (plain_path_compare). Returns (the bench, the last batch's
+    plain_path_compare result, the launches)."""
+    on_card = torch.device(device).type == "cuda"
+    bench = create_model(BREADTH_MODEL, bench_task="predict",
+                         num_classes=NUM_CLASSES, soft_nms=True,
+                         ood_method="energy", compute_dtype="bfloat16",
+                         seed=0, device=device, image_size=(img, img))
+    anchors = bench.model.config.num_anchors_per_location
+    bench.model.class_net.predict_bias().view(anchors, NUM_CLASSES)[
+        :, :3] += 2.0
+    requests = 3
+    reqs = [canvases(batch, gen, img=img, device=device)
+            for _ in range(requests)]
+    sync_if(on_card)
+    reset_launches()
+    for imgs, hw in reqs:
+        pre = batched_letterbox_normalize(imgs, hw, target_hw=(img, img),
+                                          out_dtype="bfloat16")
+        dets, ood = bench(pre["image"], pre)
+    sync_if(on_card)
+    launches = launch_counts()
+    if on_card:
+        check(launches["K1"] == launches["K2"] == requests,
+              f"[13] K1 and K2 must launch once a request: {launches}")
+    check(tuple(dets.shape) == (batch, 100, 6)
+          and tuple(ood.shape) == (batch, 100), "[13] output shapes")
+    check(bool(torch.isfinite(dets).all()) and bool(torch.isfinite(ood).all()),
+          "[13] non-finite outputs")
+    n_det = int((dets[..., 4] > 0).sum())
+    check(n_det > 0, "[13] no detections")
+    log(f"[13] {BREADTH_MODEL}@{img} bf16 predict: {requests} requests x "
+        f"{batch} images, launches {launches}, {n_det} detections in the "
+        f"last ({bench.anchors.boxes.shape[0]} anchors)")
+    return bench, plain_path_compare(bench, pre, tag="[13]"), launches
+
+
+BREADTH_PRETRAIN_ARGS = (
+    "--model", BREADTH_MODEL, "--num-classes", str(NUM_CLASSES),
+    "--batch-size", str(BREADTH_TRAIN_BATCH), "--steps", "8", "--val-freq",
+    "4", "--val-steps", "2", "--log-freq", "4", "--eval-map", "--workers",
+    "4", "--mesh", "1")
+
+
+def breadth_pretrain(tmp, device="cuda", extra=()):
+    """Phase 13 (b): ``train.pretrain.main --model cspresdet50`` (f32, as
+    its config says) on synthetic data, batch 16, 8 steps, validation of 2
+    batches with --eval-map every 4 (``extra`` overrides flags): finite
+    logged losses and val_mAP at each validation; on the card K3 / K4 once
+    a train step and a val batch and K1 once a val batch. Then the
+    logger's img_per_sec, the median step (CUDA events, timed_train_steps)
+    and the peak memory. Returns (the final state, the logs, the step
+    timer, the launches)."""
+    on_card = torch.device(device).type == "cuda"
+    argv = list(BREADTH_PRETRAIN_ARGS) + [
+        "--device", device, "--checkpoint-dir", f"{tmp}/ck13",
+        "--per-cat-dir", f"{tmp}/pc13"] + list(extra)
+    args = pretrain.build_argparser().parse_args(argv)
+    sync_if(on_card)
+    reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with timed_train_steps(device) as timer:
+        state, _, logs = run_driver(pretrain.main, argv, "[13] pretrain:")
+    sync_if(on_card)
+    launches = launch_counts()
+    losses = [e for e in logs if "loss" in e]
+    check(len(losses) == args.steps // args.log_freq and all(
+        e[k] is not None and math.isfinite(e[k]) for e in losses
+        for k in ("loss", "class_loss", "box_loss")),
+        "[13] pretrain: a logged loss is missing or not finite")
+    rounds = args.steps // args.val_freq
+    maps = [e for e in logs if "val_mAP" in e]
+    check([e["step"] for e in maps] == [args.val_freq * (i + 1)
+                                        for i in range(rounds)]
+          and all(math.isfinite(e["val_mAP"]) for e in maps),
+          "[13] pretrain: val_mAP not logged, or not finite, at each "
+          "validation")
+    val_batches = rounds * args.val_steps
+    if on_card:
+        want = {"K1": val_batches, "K2": 0, "K3": args.steps + val_batches,
+                "K4": args.steps + val_batches}
+        check(launches == want,
+              f"[13] pretrain: launches {launches}, not {want}")
+    size = state.model.config.image_size[0]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    rates = [e["img_per_sec"] for e in logs if "img_per_sec" in e]
+    log(f"[13] [{CARD}] pretrain {BREADTH_MODEL}@{size} f32 "
+        f"B={args.batch_size}: {args.steps} steps, {rounds} validations of "
+        f"{args.val_steps} batches, launches {launches}; img_per_sec by log "
+        f"step {rates}; median train step {timer.median * 1e3:.3f} ms (CUDA "
+        f"events, {args.batch_size * 1e3 / (timer.median * 1e3):.2f} "
+        f"images/s); peak memory {peak:.2f} GiB")
+    return state, logs, timer, launches
+
+
+@contextlib.contextmanager
+def recorded_train_steps():
+    """Every step function that ``train_state.make_train_step`` returns
+    inside the block records its metrics (floats) a step, and after its
+    first step the model's BatchNorm running statistics. Yields the
+    record (``metrics``, ``stats``)."""
+    record = SimpleNamespace(metrics=[], stats=None)
+    make = train_state_mod.make_train_step
+
+    def recording_make(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+
+        def recorded(state, batch):
+            state, metrics = step_fn(state, batch)
+            record.metrics.append({k: float(v) for k, v in metrics.items()})
+            if record.stats is None:
+                record.stats = {
+                    n: b.detach().clone()
+                    for n, b in state.model.named_buffers()
+                    if n.endswith(("running_mean", "running_var"))}
+            return state, metrics
+        return recorded
+
+    train_state_mod.make_train_step = recording_make
+    try:
+        yield record
+    finally:
+        train_state_mod.make_train_step = make
+
+
+REMAT_ARGS = ("--model", REMAT_MODEL, "--num-classes", str(NUM_CLASSES),
+              "--batch-size", str(REMAT_BATCH), "--steps", "3",
+              "--val-freq", "1000", "--log-freq", "1", "--dropout", "0.2",
+              "--workers", "2", "--mesh", "1")
+REMAT_FLAGS = ("--remat", "3", "--remat-fpn-heads")
+
+
+def remat_pair(tmp, device="cuda", extra=()):
+    """Phase 13 (c): ``train.pretrain.main --model efficientdet_d4
+    --dropout 0.2`` (f32, batch 4, 3 steps, no validation) twice from the
+    same seed and data, plain and with ``--remat 3 --remat-fpn-heads``
+    (``extra`` overrides flags). The first step's loss and grad_norm agree
+    to 1e-5 relative, every BatchNorm running statistic after step 1 to
+    1e-6, every step's loss is finite, and on the card K3 / K4 launch once
+    a step and the rematted run's peak memory is lower. Returns {run:
+    (record, peak GiB, final state, launches)}."""
+    on_card = torch.device(device).type == "cuda"
+    runs = {}
+    for name, flags in (("plain", ()), ("remat", REMAT_FLAGS)):
+        argv = list(REMAT_ARGS) + [
+            "--device", device, "--checkpoint-dir", f"{tmp}/ck_{name}",
+            "--per-cat-dir", f"{tmp}/pc_{name}"] + list(extra) + list(flags)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with recorded_train_steps() as record:
+            state, _, logs = run_driver(pretrain.main, argv,
+                                        f"[13] {name}:")
+        sync_if(on_card)
+        launches = launch_counts()
+        if on_card:
+            want = {"K1": 0, "K2": 0, "K3": 3, "K4": 3}
+            check(launches == want,
+                  f"[13] {name}: launches {launches}, not {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card \
+            else 0.0
+        check(len(record.metrics) == 3 and all(
+            math.isfinite(m[k]) for m in record.metrics
+            for k in ("loss", "grad_norm")),
+            f"[13] {name}: a step's loss or grad_norm is not finite")
+        cfg = state.model.config
+        check(cfg.backbone_args.get("drop_path_rate") == 0.2
+              and (cfg.remat_fpn, cfg.remat_heads,
+                   cfg.backbone_args.get("remat_stages", 0))
+              == ((True, True, 3) if flags else (False, False, 0)),
+              f"[13] {name}: the flags did not reach the model config")
+        runs[name] = (record, peak, state, launches)
+    plain, remat = runs["plain"][0], runs["remat"][0]
+    for key in ("loss", "grad_norm"):
+        a, b = plain.metrics[0][key], remat.metrics[0][key]
+        check(abs(a - b) <= 1e-5 * abs(a),
+              f"[13] remat vs plain step 1 {key}: {b!r} vs {a!r}")
+    stat_err = max(float((plain.stats[n] - remat.stats[n]).abs().max())
+                   for n in plain.stats)
+    check(all(torch.allclose(plain.stats[n], remat.stats[n], rtol=1e-6,
+                             atol=1e-6) for n in plain.stats),
+          f"[13] BatchNorm statistics after step 1 differ by {stat_err}")
+    if on_card:
+        check(runs["remat"][1] < runs["plain"][1],
+              f"[13] remat peak {runs['remat'][1]} GiB is not below "
+              f"{runs['plain'][1]} GiB")
+    size = runs["plain"][2].model.config.image_size[0]
+    log(f"[13] [{CARD}] {REMAT_MODEL}@{size} f32 B={REMAT_BATCH} "
+        f"--dropout 0.2: step 1 loss {plain.metrics[0]['loss']!r} / "
+        f"{remat.metrics[0]['loss']!r}, grad_norm "
+        f"{plain.metrics[0]['grad_norm']!r} / "
+        f"{remat.metrics[0]['grad_norm']!r} (plain / {' '.join(REMAT_FLAGS)}"
+        f"); BatchNorm statistics after step 1 max abs diff {stat_err}; "
+        f"peak memory {runs['plain'][1]:.2f} / {runs['remat'][1]:.2f} GiB; "
+        f"launches {runs['plain'][3]} / {runs['remat'][3]}")
+    return runs
+
+
+def remat_kernels(gen, tag="[13]"):
+    """K3 / K4 at REMAT_MODEL's 196,416 anchors on a batch of REMAT_BATCH
+    images' ground truth, against their plain versions and timed beside
+    their bounds (label_kernel_times)."""
+    anchor_boxes = torch.from_numpy(Anchors.from_config(
+        get_efficientdet_config(REMAT_MODEL)).boxes).cuda()
+    boxes, cls = ground_truth(REMAT_BATCH, gen, img=REMAT_IMG)
+    label_compare(anchor_boxes, boxes, cls, unmatched=0.5)
+    return label_kernel_times(anchor_boxes, boxes, cls,
+                              tag=f"{tag} [{CARD}]")
+
+
+def zoo_sweep(gen, device="cuda", names=ZOO_SWEEP, batch=2):
+    """Phase 13 (d): each zoo entry of ``names`` at full width and its
+    published image size, 90 classes,
+    bf16, soft-NMS, energy OOD, seed 0: built with create_model, then one
+    request of ``batch`` uint8 canvases through letterbox -> forward -> K2
+    -> K1 (on the card once each), finite outputs of their shapes; a
+    second request for its warm time. Logs, an entry a line, the build
+    seconds, both request times and the peak memory. Returns {name:
+    (build s, cold ms, warm ms, peak GiB)}."""
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for name in names:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bench = create_model(name, bench_task="predict",
+                             num_classes=NUM_CLASSES, soft_nms=True,
+                             ood_method="energy", compute_dtype="bfloat16",
+                             seed=0, device=device)
+        sync_if(on_card)
+        build_s = time.perf_counter() - t0
+        size = bench.model.config.image_size[0]
+        imgs, hw = canvases(batch, gen, img=size, device=device)
+
+        def request():
+            pre = batched_letterbox_normalize(imgs, hw,
+                                              target_hw=(size, size),
+                                              out_dtype="bfloat16")
+            return bench(pre["image"], pre)
+
+        def timed():
+            t0 = time.perf_counter()
+            out = request()
+            sync_if(on_card)
+            return out, (time.perf_counter() - t0) * 1e3
+
+        reset_launches()
+        (dets, ood), cold = timed()
+        launches = launch_counts()
+        (dets, ood), warm = timed()
+        times = (cold, warm)
+        if on_card:
+            check(launches["K1"] == launches["K2"] == 1,
+                  f"[13] {name}: K1 and K2 must launch once a request: "
+                  f"{launches}")
+        check(tuple(dets.shape) == (batch, 100, 6)
+              and tuple(ood.shape) == (batch, 100)
+              and bool(torch.isfinite(dets).all())
+              and bool(torch.isfinite(ood).all()),
+              f"[13] {name}: outputs not finite or of the wrong shapes")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card \
+            else 0.0
+        out[name] = (build_s, times[0], times[1], peak)
+        log(f"[13] [{CARD}] zoo {name}@{size} B={batch}: build "
+            f"{build_s:.2f} s, request {times[0]:.2f} ms cold / "
+            f"{times[1]:.2f} ms warm, peak memory {peak:.2f} GiB, "
+            f"{bench.anchors.boxes.shape[0]} anchors, launches {launches}")
+        del bench
+    return out
+
+
+def breadth_kernel_cases(gen):
+    """Phase 3's cases at phase 13's shapes: K2 on random logits at
+    BREADTH_IMG's levels (batch 16 and 64) and at REMAT_IMG's (a 128 x 128
+    P3; batch 2 and REMAT_BATCH); K3 / K4 at REMAT_MODEL's 196,416 anchors
+    with the train path's hazard rows (identical rows, a row that overlaps
+    nothing, an all-padding image), batch REMAT_BATCH and
+    BREADTH_TRAIN_BATCH, at unmatched 0.5 and 0.3."""
+    for batch, img in ((BATCH, BREADTH_IMG), (64, BREADTH_IMG),
+                       (2, REMAT_IMG), (REMAT_BATCH, REMAT_IMG)):
+        err = k2_compare(random_logits(batch, gen, img=img))
+        log(f"[3] K2 {img} px levels B={batch}: key bit-exact, energy max "
+            f"abs err {err:.3g}")
+    anchor_boxes = torch.from_numpy(Anchors.from_config(
+        get_efficientdet_config(REMAT_MODEL)).boxes).cuda()
+    check(anchor_boxes.shape[0] == REMAT_ANCHORS,
+          f"{REMAT_MODEL}: {anchor_boxes.shape[0]} anchors")
+    for batch in (REMAT_BATCH, BREADTH_TRAIN_BATCH):
+        boxes, cls = ground_truth(batch, gen, cases=True, img=REMAT_IMG)
+        for unmatched in (0.5, 0.3):
+            _, err, codes, (_, _, best) = label_compare(
+                anchor_boxes, boxes, cls, unmatched)
+            check(bool((codes[1] == -1).all())
+                  and int(best[0, 0]) == int(best[0, 1])
+                  and int(codes[0, best[0, 0]]) == 0
+                  and int(best[0, 2]) == 0 and int(codes[0, 0]) == 2,
+                  f"K3 / K4 at {REMAT_ANCHORS} anchors: the hazard rows")
+            log(f"[3] K3 / K4 [{batch}, {MAX_ROWS}] x {REMAT_ANCHORS} "
+                f"anchors, unmatched {unmatched}: match and codes "
+                f"bit-exact, box max abs err {err:.3g}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2276,6 +2667,7 @@ def main():
                 err_match = err_k3
     label_hazards(anchor_boxes, gen)
     meta_kernel_cases(gen)
+    breadth_kernel_cases(gen)
     sync()
 
     # 4. main path: 3 requests of 16 canvases
@@ -2312,28 +2704,7 @@ def main():
         f"energy {float(ood[0, 0]):.4f}")
 
     # the same batch through the plain path on the card
-    cls, box = bench.model(pre["image"])
-    err_k2 = k2_compare(cls)
-    cand_k, cand_p = (pp.select_candidates(
-        cls, box, bench.anchors, NUM_CLASSES, 5000, "energy", kernels=k)
-        for k in (True, False))
-    # the selection is bit-exact; the energies agree to f32 summation order
-    check(all(torch.equal(a, b) for a, b in zip(cand_k[:-1], cand_p[:-1])),
-          "candidates differ between K2 and its plain version")
-    check(torch.allclose(cand_k.ood_all, cand_p.ood_all, rtol=1e-5,
-                         atol=1e-5), "energies differ beyond rtol 1e-5")
-    info = (pre["img_scale"], pre["img_size"])
-    dets_k, keep_k = pp.batch_detection(*cand_k[:4], *info, soft_nms=True,
-                                        kernels=True)
-    dets_p, keep_p = pp.batch_detection(*cand_p[:4], *info, soft_nms=True,
-                                        kernels=False)
-    sync()
-    check(torch.equal(keep_k, keep_p), "keep indices differ on the main path")
-    err_k1 = float((dets_k[..., 4] - dets_p[..., 4]).abs().max())
-    check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
-          "detections differ between the kernel and plain paths")
-    log(f"[4] plain path on the same batch: equal keep indices "
-        f"({int((keep_k >= 0).sum())} kept), score max abs err {err_k1:.3g}")
+    cls, box, cand_k, info, err_k1, err_k2 = plain_path_compare(bench, pre)
 
     # 5. times: the kernels at the main path's shapes (batch 16) and at
     #    batch 128, end to end at both; card as printed above
@@ -2341,7 +2712,7 @@ def main():
     for batch in (BATCH, 128):
         throughput(bench, batch, gen)
     sync()
-    del bench, cls, box, requests, cand_k, cand_p
+    del bench, cls, box, requests, cand_k
     torch.cuda.empty_cache()
 
     # 6. the train path, 3 steps at batch 32; 7. its times
@@ -2436,6 +2807,29 @@ def main():
         deploy_path(tmp)
     sync()
     log(f"[12] phase 12 took {time.time() - t0:.1f} s")
+
+    # 13. model breadth: CSPResDet-50@640 bf16 predict (K2 -> K1) and its
+    #     pretrain CLI (K3 -> K4 -> K1), the EfficientDet-D4@1024 remat
+    #     pair with stochastic depth, and one request of each zoo entry the
+    #     port builds since this phase came in
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    bench, (cls, _, cand, info, _, _), _ = breadth_predict(gen)
+    kernel_times(cand, cls, info, tag="[13]")
+    for batch in BREADTH_RATE_BATCHES:
+        throughput(bench, batch, gen, img=BREADTH_IMG, tag="[13]")
+    sync()
+    del bench, cls, cand
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
+        breadth_pretrain(tmp)
+        torch.cuda.empty_cache()
+        remat_pair(tmp)
+    torch.cuda.empty_cache()
+    remat_kernels(gen)
+    zoo_sweep(gen)
+    sync()
+    log(f"[13] phase 13 took {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
@@ -2577,18 +2971,20 @@ def profile_window(fn, reps=PROFILE_REPS):
                 issued=sum(issued.values()) / reps), device, issued
 
 
-def throughput(bench, batch, gen):
-    """End to end at ``batch`` over uint8 canvases already on the card.
+def throughput(bench, batch, gen, img=IMG, tag="[5]"):
+    """End to end at ``batch`` over ``img`` px uint8 canvases already on
+    the card; logged under ``tag``.
     Requests (preproc -> forward -> post-process, each ending in a
     synchronise) run until WINDOW_S seconds have passed: images/s over the
     window, and the median, least and most request time. Then a profiler
     window of the whole request and of each stage alone (profile_window),
     and the kernels with the most device time in a request. At batches
     other than the main path's, also the kernels' times on this batch."""
-    imgs, hw = canvases(batch, gen)
+    imgs, hw = canvases(batch, gen, img=img)
+    num_classes = bench.config.num_classes
 
     def preproc():
-        return batched_letterbox_normalize(imgs, hw, target_hw=(IMG, IMG),
+        return batched_letterbox_normalize(imgs, hw, target_hw=(img, img),
                                            out_dtype="bfloat16")
 
     def request():
@@ -2605,7 +3001,8 @@ def throughput(bench, batch, gen):
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     times.sort()
-    log(f"[5] end to end B={batch}: {batch * len(times) * 1e3 / sum(times)}"
+    log(f"{tag} [{CARD}] end to end B={batch}: "
+        f"{batch * len(times) * 1e3 / sum(times)}"
         f" images/s over {len(times)} requests; request ms median "
         f"{times[len(times) // 2]}, min {times[0]}, max {times[-1]}")
 
@@ -2616,24 +3013,24 @@ def throughput(bench, batch, gen):
         "preproc": preproc,
         "forward": lambda: bench.model(pre["image"]),
         "post": lambda: pp.generate_detections(
-            cls, box, bench.anchors, NUM_CLASSES, img_scale=pre["img_scale"],
+            cls, box, bench.anchors, num_classes, img_scale=pre["img_scale"],
             img_size=pre["img_size"], soft_nms=True, ood_method="energy"),
     }
     top = collections.Counter()
     for name, fn in stages.items():
         numbers, device, _ = profile_window(fn)
-        log(f"[5] profile B={batch} {name}: " + ", ".join(
+        log(f"{tag} profile B={batch} {name}: " + ", ".join(
             f"{k} {v}" for k, v in numbers.items()))
         if name == "request":
             for e in device:
                 top[e.name[:80]] += (e.time_range.end - e.time_range.start
                                      ) / 1e3 / PROFILE_REPS
     for name, ms in top.most_common(10):
-        log(f"[5] top kernel B={batch}: {ms:.4f} ms {name}")
+        log(f"{tag} top kernel B={batch}: {ms:.4f} ms {name}")
     if batch != BATCH:
         kernel_times(pp.select_candidates(cls, box, bench.anchors,
-                                          NUM_CLASSES, 5000, "energy"), cls,
-                     (pre["img_scale"], pre["img_size"]))
+                                          num_classes, 5000, "energy"), cls,
+                     (pre["img_scale"], pre["img_size"]), tag=tag)
 
 
 if __name__ == "__main__":

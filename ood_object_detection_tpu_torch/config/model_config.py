@@ -5,9 +5,9 @@ kept in this package so the PyTorch port never imports the JAX package
 (whose ``__init__`` pulls in jax). tests/test_torch_config.py holds every
 zoo entry equal to the JAX one.
 
-Fields that describe the JAX/TPU path only (``nms_impl``, ``topk_recall``,
-``remat_*``) are kept so configs round-trip unchanged; the port's
-post-process is exact and picks its NMS kernel by tensor device.
+Fields that describe the JAX/TPU path only (``nms_impl``, ``topk_recall``)
+are kept so configs round-trip unchanged; the port's post-process is exact
+and picks its NMS kernel by tensor device.
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ from torch import nn
 
 from ..config.fpn_config import FpnGraph, get_fpn_config
 from ..config.model_config import ModelConfig
-from .layers import ConvBnAct, ResampleFeatureMap, SeparableConv, get_act
+from .layers import (ConvBnAct, ResampleFeatureMap, SeparableConv, get_act,
+                     remat)
 
 
 def _resample(cfg: ModelConfig, in_channels: int, reduction_ratio: float
@@ -116,7 +117,9 @@ class BiFpnLayer(nn.Module):
 
 class BiFpn(nn.Module):
     """Extra coarse levels (P6, P7 ... by downsampling the deepest backbone
-    feature) + the stacked cells."""
+    feature) + the stacked cells, each cell under ``layers.remat`` with
+    ``cfg.remat_fpn`` (the JAX package's lifted ``nn.remat`` of
+    ``BiFpnLayer``)."""
 
     def __init__(self, cfg: ModelConfig, feature_info: Sequence[Dict[str, int]]):
         super().__init__()
@@ -135,11 +138,12 @@ class BiFpn(nn.Module):
             info = [dict(num_chs=cfg.fpn_channels, reduction=1 << lvl)
                     for lvl in range(cfg.min_level, cfg.max_level + 1)]
         self.cell = nn.ModuleList(cells)
+        self.remat = cfg.remat_fpn
 
     def forward(self, x: List[torch.Tensor]) -> List[torch.Tensor]:
         x = list(x)
         for resample in self.resample.values():
             x.append(resample(x[-1]))
         for cell in self.cell:
-            x = cell(x)
+            x = remat(cell, x) if self.remat else cell(x)
         return x

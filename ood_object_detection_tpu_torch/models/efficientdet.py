@@ -18,8 +18,14 @@ step's ``freeze_bn``). The staged methods of the episodic harness
 (``backbone_features``, ``fpn_features``, ``class_head``, ``box_head``)
 take the normalisation from the module's mode; ``layers.
 batch_stats_mode`` switches a subnet to batch statistics that write
-nothing. The ``remat_fpn`` / ``remat_heads`` options are not ported yet and
-raise.
+nothing.
+
+``config.remat_fpn`` / ``remat_heads`` recompute each FPN cell's and each
+head's activations in the backward pass (``layers.remat``), and the
+backbone's ``remat_stages`` its first stages' blocks; the running
+statistics are written once. ``forward`` and ``backbone_features`` take
+the stochastic-depth generator of a train step (``generator``), which a
+backbone with ``drop_path_rate > 0`` draws its drop masks from.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from ..config.model_config import ModelConfig
 from .backbone import create_backbone
 from .bifpn import BiFpn
 from .heads import PRIOR_BIAS, HeadNet
-from .layers import Conv2d, init_conv_
+from .layers import Conv2d, init_conv_, remat
 
 FREEZE_BN_SCOPES = ("none", "backbone", "all")
 
@@ -50,9 +56,6 @@ class EfficientDet(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.remat_fpn or config.remat_heads:
-            raise NotImplementedError("remat_fpn / remat_heads are not "
-                                      "ported yet")
         self.config = config
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.backbone, feature_info = create_backbone(
@@ -96,19 +99,27 @@ class EfficientDet(nn.Module):
     def _image(self, x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 3, 1, 2).to(self.compute_dtype)
 
-    def backbone_features(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def backbone_features(self, x: torch.Tensor,
+                          generator: Optional[torch.Generator] = None
+                          ) -> List[torch.Tensor]:
         """Image [B, H, W, 3] -> [P3, P4, P5] backbone features (NHWC)."""
-        return _nhwc(self.backbone(self._image(x)))
+        return _nhwc(self.backbone(self._image(x), generator))
 
     def fpn_features(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
         """Backbone features -> FPN pyramid P3..P7 (NHWC)."""
         return _nhwc(self.fpn(_nchw(feats)))
 
+    def _heads(self, activs: List[torch.Tensor]
+               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        if self.config.remat_heads:
+            return (_nhwc(remat(self.class_net, activs)),
+                    _nhwc(remat(self.box_net, activs)))
+        return _nhwc(self.class_net(activs)), _nhwc(self.box_net(activs))
+
     def heads(self, activs: List[torch.Tensor]
               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Pyramid (NHWC) -> (class outputs, box outputs) per level."""
-        activs = _nchw(activs)
-        return _nhwc(self.class_net(activs)), _nhwc(self.box_net(activs))
+        return self._heads(_nchw(activs))
 
     def class_head(self, activs: List[torch.Tensor], ret_activs: bool = False,
                    level_offset: int = 0, force_batch_stats: bool = False,
@@ -132,9 +143,10 @@ class EfficientDet(nn.Module):
         """Pyramid (NHWC) -> box outputs per level (NHWC)."""
         return _nhwc(self.box_net(_nchw(activs)))
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Image [B, H, W, 3] -> (class [B, H, W, A*C], box [B, H, W, A*4])
-        per level."""
-        activs = self.fpn(self.backbone(self._image(x)))
-        return _nhwc(self.class_net(activs)), _nhwc(self.box_net(activs))
+        per level; ``generator`` draws the backbone's drop masks."""
+        return self._heads(self.fpn(self.backbone(self._image(x),
+                                                  generator)))

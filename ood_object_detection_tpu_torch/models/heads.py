@@ -19,7 +19,7 @@ from torch import nn
 
 from ..config.model_config import ModelConfig
 from .layers import (Conv2d, ConvBnAct, SeparableConv, get_act,
-                     update_running_stats)
+                     recomputing, update_running_stats)
 
 # focal-loss prior: the class predict bias starts at -log((1 - p) / p)
 PRIOR_PROB = 0.01
@@ -39,7 +39,8 @@ class HeadBatchNorm(nn.Module):
     ``jnp.var`` do (two passes: the mean, then the mean squared
     deviation). Train mode also updates the running statistics in place
     with the biased variance, ``ra = (1 - m) * ra + m * batch``, unless
-    ``write_stats`` is False; ``force_batch_stats`` in eval mode writes
+    ``write_stats`` is False or the forward is ``layers.remat``'s
+    recompute; ``force_batch_stats`` in eval mode writes
     nothing, as the JAX head does outside a mutable apply.
     """
 
@@ -62,7 +63,7 @@ class HeadBatchNorm(nn.Module):
             mean = x32.mean(dim=(0, 2, 3))
             centred = x32 - mean.view(1, -1, 1, 1)
             var = (centred * centred).mean(dim=(0, 2, 3))
-            if self.training and self.write_stats:
+            if self.training and self.write_stats and not recomputing():
                 update_running_stats(self, mean, var, 1 - self.momentum)
         else:
             mean, var = self.running_mean, self.running_var

@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _ACTS: Dict[str, Callable] = {
     "swish": F.silu,
@@ -134,7 +136,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     affine in f32, cast back to the input's dtype. The running statistics
     are then updated in place, under no_grad, with the biased batch
     variance: ``ra = (1 - m) * ra + m * batch`` with ``m = momentum``,
-    unless ``write_stats`` is False (``batch_stats_mode``).
+    unless ``write_stats`` is False (``batch_stats_mode``) or the forward
+    is ``remat``'s recompute.
     ``F.batch_norm(training=True)`` is not used: it updates the running
     variance with the unbiased variance (N / (N - 1) larger).
     """
@@ -152,7 +155,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = x32.mean(dim=(0, 2, 3))
         var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean,
                           min=0.0)
-        if self.write_stats:
+        if self.write_stats and not recomputing():
             update_running_stats(self, mean, var, 1.0 - self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
@@ -186,6 +189,41 @@ def update_running_stats(norm: nn.Module, mean: torch.Tensor,
     running (biased) variance, in place."""
     norm.running_mean.copy_(keep * norm.running_mean + (1 - keep) * mean)
     norm.running_var.copy_(keep * norm.running_var + (1 - keep) * var)
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread is inside ``remat``'s recompute of a forward."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` with its intermediate activations recomputed in the
+    backward pass instead of kept (``torch.utils.checkpoint``, not
+    reentrant): the JAX package's ``nn.remat`` with ``nothing_saveable``.
+    flax's lifted remat writes the BatchNorm statistics once; here the
+    recompute runs with ``recomputing()`` set, so no running statistic
+    is written twice. Whatever is random in ``fn`` must come in through
+    ``args`` (a drop mask drawn before the region), as the checkpoint does
+    not replay an explicit generator. Without autograd it is a plain
+    call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    calls = []
+
+    def run(*inner):
+        if not calls:
+            calls.append(True)
+            return fn(*inner)
+        _RECOMPUTE.on = True
+        try:
+            return fn(*inner)
+        finally:
+            _RECOMPUTE.on = False
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class ConvBnAct(nn.Module):
@@ -254,6 +292,34 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+def interpolate(x: torch.Tensor, out_hw, mode: str = "nearest"
+                ) -> torch.Tensor:
+    """Resize the spatial dims to ``out_hw`` as the JAX package's
+    ``interpolate`` does: nearest upsampling by a repeat, else
+    ``jax.image.resize``, which samples at half-pixel centres and
+    antialiases when it shrinks ('nearest' -> 'nearest-exact'; 'bilinear'
+    and 'bicubic' through the antialiased kernels, whose cubic is Keys'
+    a = -0.5 as jax's; bilinear enlarging through the plain kernel,
+    which it equals there). Linear modes compute in f32 and round once."""
+    h, w = x.shape[2:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if mode == "nearest":
+        if oh == h * (oh // h) and ow == w * (oh // h):
+            return upsample_nearest(x, oh // h)
+        # half-pixel centres (an integer factor is a repeat here too)
+        return F.interpolate(x, size=(oh, ow), mode="nearest-exact")
+    if mode not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown interpolation mode {mode!r}")
+    if mode == "bilinear" and oh >= h and ow >= w:
+        # no antialiasing when enlarging: the plain kernel, which computes
+        # a bf16 map in f32 and rounds once, in the map's own dtype
+        return F.interpolate(x, size=(oh, ow), mode=mode,
+                             align_corners=False)
+    y = F.interpolate(x.float(), size=(oh, ow), mode=mode,
+                      align_corners=False, antialias=True)
+    return y.to(x.dtype)
+
+
 def max_pool2d(x: torch.Tensor, kernel_size: int, stride: int,
                pad_type: str) -> torch.Tensor:
     if _is_same(pad_type):
@@ -264,12 +330,28 @@ def max_pool2d(x: torch.Tensor, kernel_size: int, stride: int,
     return F.max_pool2d(x, kernel_size, stride, padding=(kernel_size - 1) // 2)
 
 
+def avg_pool2d(x: torch.Tensor, kernel_size: int, stride: int,
+               pad_type: str) -> torch.Tensor:
+    """flax ``nn.avg_pool`` over ``pool_padding``'s pads: the padded zeros
+    count in the divisor (the window size), under TF SAME (asymmetric
+    pads) and under '' ((k-1)//2 a side) alike."""
+    if _is_same(pad_type):
+        x = pad_same(x, kernel_size, stride)
+    else:
+        pad = (kernel_size - 1) // 2
+        x = F.pad(x, (pad, pad, pad, pad))
+    return F.avg_pool2d(x, kernel_size, stride, padding=0)
+
+
 class ResampleFeatureMap(nn.Module):
     """Channel projection (1x1 conv, optional BN) + spatial resample.
 
-    Downsampling max-pools with kernel = stride + 1; upsampling is nearest
-    by integer repeat. ``avg`` pooling and interpolating downsample /
-    bilinear upsample serve other zoo entries and wait for a later slice.
+    Downsampling pools (``max`` / ``avg``, kernel = stride + 1) or
+    interpolates (any other ``downsample``: ``interpolate``'s modes) to
+    ``int(size / reduction_ratio)``; upsampling is ``interpolate`` by the
+    integer scale (nearest by repeat, or ``bilinear``). The 1x1 conv runs
+    when the channels change, before or after a downsample by
+    ``conv_after_downsample``.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -279,12 +361,10 @@ class ResampleFeatureMap(nn.Module):
                  redundant_bias: bool = False, norm_eps: float = 1e-3,
                  norm_momentum: float = 0.01):
         super().__init__()
-        if reduction_ratio > 1 and downsample != "max":
-            raise NotImplementedError(f"downsample_type {downsample!r}")
-        if reduction_ratio < 1 and upsample != "nearest":
-            raise NotImplementedError(f"upsample_type {upsample!r}")
         self.reduction_ratio = reduction_ratio
         self.pad_type = pad_type
+        self.downsample = downsample
+        self.upsample = upsample
         self.conv_after_downsample = conv_after_downsample
         self.conv = None
         if in_channels != out_channels:
@@ -298,14 +378,22 @@ class ResampleFeatureMap(nn.Module):
             if self.conv is not None and not self.conv_after_downsample:
                 x = self.conv(x)
             stride = int(self.reduction_ratio)
-            x = max_pool2d(x, stride + 1, stride, self.pad_type)
+            if self.downsample in ("max", "avg"):
+                pool = max_pool2d if self.downsample == "max" else avg_pool2d
+                x = pool(x, stride + 1, stride, self.pad_type)
+            else:
+                x = interpolate(x, (int(x.shape[2] / self.reduction_ratio),
+                                    int(x.shape[3] / self.reduction_ratio)),
+                                self.downsample)
             if self.conv is not None and self.conv_after_downsample:
                 x = self.conv(x)
         else:
             if self.conv is not None:
                 x = self.conv(x)
             if self.reduction_ratio < 1:
-                x = upsample_nearest(x, int(1 // self.reduction_ratio))
+                scale = int(1 // self.reduction_ratio)
+                x = interpolate(x, (x.shape[2] * scale, x.shape[3] * scale),
+                                self.upsample)
         return x
 
 
@@ -324,3 +412,33 @@ class SqueezeExcite(nn.Module):
         s = x.mean(dim=(2, 3), keepdim=True)
         s = self.conv_expand(self.act(self.conv_reduce(s)))
         return x * self.gate(s)
+
+
+def drop_mask(batch: int, generator: torch.Generator, rate: float,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A per-sample keep mask [batch, 1, 1, 1] of 0 / 1 in ``dtype``, each
+    sample kept with probability ``1 - rate`` (``jax.random.bernoulli``:
+    a uniform draw below the keep probability), drawn from ``generator``
+    on its device."""
+    u = torch.rand((batch, 1, 1, 1), generator=generator,
+                   device=generator.device)
+    return (u < 1.0 - rate).to(dtype)
+
+
+def apply_drop(x: torch.Tensor, mask: Optional[torch.Tensor],
+               rate: float) -> torch.Tensor:
+    """``x * mask / keep``, the JAX package's ``drop_path`` arithmetic,
+    for a mask from ``drop_mask``; ``x`` itself without a mask."""
+    if mask is None or rate <= 0.0:
+        return x
+    return x * mask.to(device=x.device, dtype=x.dtype) / (1.0 - rate)
+
+
+def drop_path(x: torch.Tensor, generator: Optional[torch.Generator],
+              rate: float) -> torch.Tensor:
+    """Stochastic depth on the batch dim: each sample of ``x`` zeroed with
+    probability ``rate`` and the kept ones scaled by ``1 / (1 - rate)``;
+    ``x`` itself at rate 0 or without a generator."""
+    if rate <= 0.0 or generator is None:
+        return x
+    return apply_drop(x, drop_mask(x.shape[0], generator, rate), rate)

@@ -1,5 +1,6 @@
-"""Detection losses: focal (legacy and 'new'), huber, one-hot with ignore,
-the flat and per-level NHWC detection losses (port of
+"""Detection losses: focal (legacy and 'new'), huber, cosine, smooth-L1,
+L2, one-hot with ignore, the flat, per-level and per-level NHWC detection
+losses and the class-only / box-only variants (port of
 ``ood_object_detection_tpu.ops.losses``).
 
 Dtypes follow the JAX functions op by op. Where jax promotes a bf16 array
@@ -71,6 +72,48 @@ def new_focal_loss(logits, targets, alpha: Optional[float], gamma: float,
     return _f32_if_tensor(loss, normalizer) / normalizer
 
 
+def cosine_loss(inputs, targets, margin: float = 0.0) -> torch.Tensor:
+    """Hinged cosine-similarity loss: ``1 - x`` where the target is 1,
+    ``x - margin`` elsewhere, clipped at 0, averaged."""
+    loss = torch.where(targets == 1.0, 1.0 - inputs, inputs - margin)
+    return torch.mean(torch.clamp(loss, min=0.0))
+
+
+def _signed_weight_sums(err, weights):
+    """(sum of the positive, sum of the negative) ``sign(err) * weights``:
+    the reference's gradient-sum extras."""
+    weighted_sign = torch.sign(err) * weights
+    zero = torch.zeros_like(weighted_sign)
+    return (torch.sum(torch.where(weighted_sign > 0, weighted_sign, zero)),
+            torch.sum(torch.where(weighted_sign < 0, weighted_sign, zero)))
+
+
+def smooth_l1_loss(inputs, targets, beta: float = 1.0 / 9,
+                   weights: Optional[torch.Tensor] = None):
+    """Smooth-L1 summed; with ``weights`` also the positive and negative
+    weighted-sign sums: (loss, pos_grad_sum, neg_grad_sum)."""
+    err = inputs - targets
+    abs_err = torch.abs(err)
+    if beta < 1e-5:
+        loss = abs_err
+    else:
+        loss = torch.where(abs_err < beta, 0.5 * abs_err * abs_err / beta,
+                           abs_err - 0.5 * beta)
+    if weights is None:
+        return torch.sum(loss)
+    return (torch.sum(loss * weights),) + _signed_weight_sums(err, weights)
+
+
+def l2_loss(inputs, targets, weights: Optional[torch.Tensor] = None):
+    """Mean squared error; with ``weights`` (weighted mean, pos_grad_sum,
+    neg_grad_sum) as ``smooth_l1_loss``."""
+    err = inputs - targets
+    loss = err * err
+    if weights is None:
+        return torch.mean(loss)
+    return (torch.mean(loss * weights),) + _signed_weight_sums(err, weights)
+
+
 def huber_loss(inputs, targets, delta: float = 1.0,
                weights: Optional[torch.Tensor] = None,
                size_average: bool = True):
@@ -129,6 +172,55 @@ def detection_loss_flat(cls_logits, box_outputs, cls_targets, box_targets,
                          delta=delta)
     total = cls_loss + box_loss_weight * box_loss
     return total, cls_loss, box_loss
+
+
+def detection_loss_levels(cls_outputs: Sequence[torch.Tensor],
+                          box_outputs: Sequence[torch.Tensor],
+                          cls_targets: Sequence[torch.Tensor],
+                          box_targets: Sequence[torch.Tensor],
+                          num_positives, num_classes: int, alpha: float,
+                          gamma: float, delta: float, box_loss_weight: float,
+                          label_smoothing: float = 0.0,
+                          legacy_focal: bool = False,
+                          focal_modulation: bool = False):
+    """``detection_loss_flat`` of per-level NHWC outputs and per-level
+    targets (class [B, H, W, A], box [B, H, W, A*4]): the reference's
+    per-level loss signature."""
+    return detection_loss_flat(
+        levels_to_flat(cls_outputs, num_classes),
+        levels_to_flat(box_outputs, 4),
+        levels_to_flat([t.unsqueeze(-1) for t in cls_targets], 1)[..., 0],
+        levels_to_flat(box_targets, 4),
+        num_positives, num_classes=num_classes, alpha=alpha, gamma=gamma,
+        delta=delta, box_loss_weight=box_loss_weight,
+        label_smoothing=label_smoothing, legacy_focal=legacy_focal,
+        focal_modulation=focal_modulation)
+
+
+def class_loss_flat(cls_logits, cls_targets, num_positives,
+                    alpha: Optional[float], gamma: float,
+                    label_smoothing: float = 0.0,
+                    loss_type: str = "ce") -> torch.Tensor:
+    """Class-only loss of [B, A, C] logits against [B, A, C] float
+    (one-hot or soft) targets, summed over the 'new' focal terms
+    normalised by positives + 1; ``loss_type`` 'ce' (sigmoid BCE) or
+    'mse'."""
+    num_positives_sum = torch.sum(num_positives) + 1.0
+    loss_func = sigmoid_bce if loss_type == "ce" else \
+        (lambda lo, t: (lo - t) ** 2)
+    loss = new_focal_loss(cls_logits, cls_targets, alpha=alpha, gamma=gamma,
+                          normalizer=num_positives_sum,
+                          label_smoothing=label_smoothing,
+                          loss_func=loss_func)
+    return torch.sum(loss)
+
+
+def box_only_loss_flat(box_outputs, box_targets, num_positives,
+                       delta: float, box_loss_weight: float) -> torch.Tensor:
+    """``box_loss_weight`` times the huber box loss alone."""
+    num_positives_sum = torch.sum(num_positives) + 1.0
+    return box_loss_weight * _box_loss(box_outputs, box_targets,
+                                       num_positives_sum, delta=delta)
 
 
 def _focal_elem_terms(alpha, label_smoothing, logits, tgt):

@@ -16,9 +16,11 @@ Run: python -m ood_object_detection_tpu_torch.train.pretrain --help
 
 It runs on the CUDA card, and raises without one, unless ``--device cpu``
 is given (the kernels' plain versions). Every flag of the JAX CLI is
-accepted; those that reach code the port does not have yet raise, naming
-their ROADMAP Queue 1 item: ``--mesh`` above 1 (item 7), ``--remat``,
-``--remat-fpn-heads`` and ``--dropout`` (item 8).
+accepted; ``--mesh`` above 1 reaches code the port does not have yet and
+raises, naming its ROADMAP Queue 1 item (7). ``--dropout`` (the
+backbone's stochastic depth), ``--remat`` (the first N backbone stages
+recomputed in the backward) and ``--remat-fpn-heads`` go into the model
+config as the JAX CLI puts them.
 """
 from __future__ import annotations
 
@@ -48,11 +50,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--clip-grad", type=float, default=10.0)
     p.add_argument("--ema-decay", type=float, default=0.9998)
     p.add_argument("--remat", type=int, default=0,
-                   help="gradient-checkpoint the first N backbone stages "
-                        "(not ported yet: ROADMAP Queue 1 item 8)")
+                   help="gradient-checkpoint the first N backbone stages")
     p.add_argument("--remat-fpn-heads", action="store_true",
-                   help="gradient-checkpoint the FPN cells + heads too "
-                        "(not ported yet: ROADMAP Queue 1 item 8)")
+                   help="gradient-checkpoint the FPN cells + heads too")
     p.add_argument("--remat-cls-loss", action="store_true",
                    help="recompute the class focal loss in bwd instead of "
                         "saving its residuals (for memory-bound configs)")
@@ -111,8 +111,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="optimizer (reference optim flag, pretrain.py:48; "
                         "the reference drivers default to adam)")
     p.add_argument("--dropout", type=float, default=0.0,
-                   help="backbone stochastic-depth drop_path_rate "
-                        "(not ported yet: ROADMAP Queue 1 item 8)")
+                   help="backbone stochastic-depth drop_path_rate")
     p.add_argument("--random-trans", action="store_true",
                    help="--stream: jitter+flip train transforms instead of "
                         "letterbox-only (reference random_trans, "
@@ -146,13 +145,6 @@ def refuse_unported(args, device) -> None:
             f"--mesh {args.mesh} ({mesh} devices): data-parallel training is "
             "not ported yet (ROADMAP Queue 1 item 7, data parallelism); use "
             "--mesh 1")
-    for flag, on in (("--remat", args.remat > 0),
-                     ("--remat-fpn-heads", args.remat_fpn_heads),
-                     ("--dropout", args.dropout > 0)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not ported yet (ROADMAP Queue 1 item 8, breadth "
-                "of the model)")
 
 
 def make_loaders(args, model_cfg, device):
@@ -268,6 +260,15 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
         model_cfg = model_cfg.replace(fpn_cell_repeats=args.fpn_repeats)
     if args.head_repeats:
         model_cfg = model_cfg.replace(box_class_repeats=args.head_repeats)
+    if args.dropout > 0:
+        model_cfg = model_cfg.replace(backbone_args={
+            **(model_cfg.backbone_args or {}),
+            "drop_path_rate": args.dropout})
+    if args.remat:
+        model_cfg = model_cfg.replace(backbone_args={
+            **(model_cfg.backbone_args or {}), "remat_stages": args.remat})
+    if args.remat_fpn_heads:
+        model_cfg = model_cfg.replace(remat_fpn=True, remat_heads=True)
 
     tcfg = TrainConfig(
         opt=args.opt, lr=args.lr, clip_grad_norm=args.clip_grad,

@@ -20,6 +20,12 @@ decoupled from the gradient, as optax does. The clip is optax's
 norm and scales always). A learning-rate schedule is a function of the
 step, kept in the param group as ``lr_schedule``.
 
+Stochastic depth: with the backbone's ``drop_path_rate > 0`` each step
+draws its drop masks from a ``torch.Generator`` on the images' device,
+seeded from (``DROP_PATH_SEED``, step): the JAX step's
+``fold_in(key(0x0D10), step)``, a different block subset every step and
+the same one again under resume. The masks cannot be bit-equal to JAX's.
+
 Data parallelism (a ``mesh``) and the image-H sharded leg are later
 slices: ``make_train_step(mesh=...)`` raises.
 """
@@ -43,6 +49,21 @@ from ..ops.target_assigner import LabelResult, batch_label_anchors
 
 LrSchedule = Union[float, Callable[[int], float]]
 PARAM_GROUPS = ("backbone", "fpn", "heads")
+# the stochastic-depth stream of the train step (the JAX step's key 0x0D10)
+DROP_PATH_SEED = 0x0D10
+
+
+def drop_path_generator(model: EfficientDet, step: int,
+                        device: torch.device) -> Optional[torch.Generator]:
+    """The generator of train step ``step``'s drop masks on ``device``,
+    seeded from (DROP_PATH_SEED, step); None when the backbone drops
+    nothing (``drop_path_rate`` 0)."""
+    rate = float((model.config.backbone_args or {}).get("drop_path_rate",
+                                                        0.0))
+    if rate <= 0.0:
+        return None
+    return torch.Generator(device=device).manual_seed(
+        (DROP_PATH_SEED << 32) + int(step))
 
 
 @dataclasses.dataclass
@@ -263,7 +284,9 @@ def detection_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
     gradients), the metrics as device scalars."""
     labels = batch_label_anchors(anchor_boxes, batch["bbox"], batch["cls"])
     model.train_bn(freeze_bn)
-    cls_out, box_out = model(batch["image"])
+    image = batch["image"]
+    cls_out, box_out = model(image, drop_path_generator(model, state.step,
+                                                        image.device))
     total, cls_loss, box_loss = detection_loss(
         model.config, cls_out, box_out, labels,
         remat_cls=train_config.remat_cls_loss)

@@ -142,6 +142,31 @@ def _jax_tensors(model: nn.Module, variables: Dict[str, Any],
     return tensors_out, report
 
 
+def flax_variable_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """Every tensor of ``model`` that maps into the JAX tree, as
+    ``"collection/flax/path/leaf" -> shape`` in the JAX layout: what
+    ``jax.eval_shape(model.init, ...)`` of the JAX model gives, when the
+    two trees agree."""
+    out = {}
+    for module_name, module in model.named_modules():
+        is_norm = isinstance(module, _NORMS)
+        tensors = list(module.named_parameters(recurse=False)) + \
+            list(module.named_buffers(recurse=False))
+        for leaf, tensor in tensors:
+            target = _flax_leaf(leaf, is_norm)
+            if target is None:
+                continue
+            shape = tuple(tensor.shape)
+            if target[1] == "kernel" and len(shape) == 4:
+                shape = shape[2:] + (shape[1], shape[0])
+            elif target[1] == "kernel" and len(shape) == 2:
+                shape = shape[::-1]
+            key = (target[0],) + _flax_module_path(module_name) + \
+                (target[1],)
+            out["/".join(key)] = shape
+    return out
+
+
 def load_jax_variables(model: nn.Module, variables: Dict[str, Any],
                        strict: bool = True) -> Dict[str, list]:
     """Load ``{"params": tree, "batch_stats": tree}`` into ``model`` in

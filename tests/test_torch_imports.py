@@ -60,6 +60,10 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.data.native_decode",
     "ood_object_detection_tpu_torch.examples",
     "ood_object_detection_tpu_torch.examples.deploy_infer",
+    "ood_object_detection_tpu_torch.models",
+    "ood_object_detection_tpu_torch.models.backbone",
+    "ood_object_detection_tpu_torch.models.csp",
+    "ood_object_detection_tpu_torch.models.anchor_net",
 )
 
 
@@ -129,8 +133,10 @@ def test_meta_trainer_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_train_options_raise():
-    """drop_path, remat and a mesh wait for later slices: they raise rather
-    than run something else."""
+    """A mesh waits for a later slice: it raises rather than run something
+    else, as a bad freeze_bn scope does. drop_path, remat_stages,
+    remat_fpn and remat_heads are ported: each builds the model with the
+    same tensors."""
     from ood_object_detection_tpu_torch.config import (
         default_detection_train_config, get_efficientdet_config)
     from ood_object_detection_tpu_torch.models.efficientdet import (
@@ -139,12 +145,13 @@ def test_unported_train_options_raise():
     from ood_object_detection_tpu_torch.train import make_train_step
     cfg = get_efficientdet_config("efficientdet_d0").replace(
         image_size=(128, 128))
-    for bad in (dict(backbone_args={"drop_path_rate": 0.2}),
-                dict(backbone_args={"remat_stages": 2}),
-                dict(remat_fpn=True), dict(remat_heads=True)):
-        with pytest.raises(NotImplementedError):
-            EfficientDet(cfg.replace(**bad))
     model = EfficientDet(cfg)
+    shapes = {k: v.shape for k, v in model.state_dict().items()}
+    for option in (dict(backbone_args={"drop_path_rate": 0.2}),
+                   dict(backbone_args={"remat_stages": 2}),
+                   dict(remat_fpn=True), dict(remat_heads=True)):
+        built = EfficientDet(cfg.replace(**option))
+        assert {k: v.shape for k, v in built.state_dict().items()} == shapes
     with pytest.raises(NotImplementedError, match="mesh"):
         make_train_step(model, None, Anchors.from_config(cfg),
                         default_detection_train_config(), mesh=object())

@@ -232,3 +232,105 @@ def test_detection_loss_class_matches_jax():
         cls_out, box_out, cls_t, box_t, num_pos)
     for o, r in zip(ours, ref):
         np.testing.assert_allclose(float(o), float(r), rtol=2e-5)
+
+
+@pytest.mark.parametrize("margin", [0.0, 0.2])
+def test_cosine_loss_matches_jax(margin):
+    rng = np.random.default_rng(11)
+    inputs = rng.uniform(-1, 1, (4, 50)).astype(np.float32)
+    targets = (rng.uniform(size=(4, 50)) > 0.6).astype(np.float32)
+    got = tl.cosine_loss(torch.from_numpy(inputs), torch.from_numpy(targets),
+                         margin)
+    want = jl.cosine_loss(jnp.asarray(inputs), jnp.asarray(targets), margin)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("loss", ["smooth_l1", "l2"])
+def test_smooth_l1_and_l2_match_jax(loss, weighted):
+    """The reference's regression losses, with the weighted-sign sums when
+    weighted; smooth-L1 at its default beta and at beta 0 (plain L1)."""
+    rng = np.random.default_rng(12)
+    a, b = (rng.normal(0, 0.3, (3, 40, 4)).astype(np.float32)
+            for _ in range(2))
+    w = (rng.uniform(size=(3, 40, 4)) > 0.5).astype(np.float32)
+    extra = [{}] if loss == "l2" else [{}, {"beta": 0.0}]
+    for kw in extra:
+        args_t = [torch.from_numpy(a), torch.from_numpy(b)]
+        args_j = [jnp.asarray(a), jnp.asarray(b)]
+        if weighted:
+            kw = dict(kw, weights=None)
+            kw_t = dict(kw, weights=torch.from_numpy(w))
+            kw_j = dict(kw, weights=jnp.asarray(w))
+        else:
+            kw_t = kw_j = kw
+        got = getattr(tl, f"{loss}_loss")(*args_t, **kw_t)
+        want = getattr(jl, f"{loss}_loss")(*args_j, **kw_j)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want) == (3 if weighted else 1)
+        for g, r in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(r), rtol=2e-5,
+                                       atol=1e-6)
+
+
+def _level_case(rng, num_classes=5, batch=2, sizes=(8, 4, 2), anchors=3):
+    cls_out, box_out, cls_t, box_t = [], [], [], []
+    for s in sizes:
+        cls_out.append(rng.normal(-2, 1.5, (batch, s, s, anchors
+                                            * num_classes)))
+        box_out.append(rng.normal(0, 0.3, (batch, s, s, anchors * 4)))
+        t = rng.integers(-2, num_classes, (batch, s, s, anchors))
+        cls_t.append(t.astype(np.int32))
+        bt = rng.normal(0, 0.3, (batch, s, s, anchors * 4))
+        bt[np.repeat(t < 0, 4, axis=-1)] = 0.0
+        box_t.append(bt)
+    f32 = lambda xs: [x.astype(np.float32) for x in xs]
+    return f32(cls_out), f32(box_out), cls_t, f32(box_t)
+
+
+@pytest.mark.parametrize("legacy", [False, True])
+def test_detection_loss_levels_matches_jax(legacy):
+    rng = np.random.default_rng(13)
+    cls_out, box_out, cls_t, box_t = _level_case(rng)
+    npos = np.array([5.0, 3.0], np.float32)
+    kw = dict(num_classes=5, alpha=0.25, gamma=1.5, delta=0.1,
+              box_loss_weight=50.0, label_smoothing=0.1, legacy_focal=legacy)
+    tt = lambda xs: [torch.from_numpy(x) for x in xs]
+    jj = lambda xs: [jnp.asarray(x) for x in xs]
+    got = tl.detection_loss_levels(tt(cls_out), tt(box_out), tt(cls_t),
+                                   tt(box_t), torch.from_numpy(npos), **kw)
+    want = jl.detection_loss_levels(jj(cls_out), jj(box_out), jj(cls_t),
+                                    jj(box_t), jnp.asarray(npos), **kw)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(r), rtol=2e-5)
+
+
+@pytest.mark.parametrize("loss_type", ["ce", "mse"])
+@pytest.mark.parametrize("alpha", [None, 0.25])
+def test_class_loss_flat_matches_jax(loss_type, alpha):
+    rng = np.random.default_rng(14)
+    logits = rng.normal(-2, 1.5, (2, 60, 4)).astype(np.float32)
+    targets = rng.uniform(size=(2, 60, 4)).astype(np.float32)
+    npos = np.array([4.0, 7.0], np.float32)
+    got = tl.class_loss_flat(torch.from_numpy(logits),
+                             torch.from_numpy(targets),
+                             torch.from_numpy(npos), alpha, 1.5, 0.1,
+                             loss_type)
+    want = jl.class_loss_flat(jnp.asarray(logits), jnp.asarray(targets),
+                              jnp.asarray(npos), alpha, 1.5, 0.1, loss_type)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5)
+
+
+def test_box_only_loss_flat_matches_jax():
+    rng = np.random.default_rng(15)
+    box = rng.normal(0, 0.3, (2, 60, 4)).astype(np.float32)
+    target = rng.normal(0, 0.3, (2, 60, 4)).astype(np.float32)
+    target[:, ::3] = 0.0
+    npos = np.array([4.0, 7.0], np.float32)
+    got = tl.box_only_loss_flat(torch.from_numpy(box),
+                                torch.from_numpy(target),
+                                torch.from_numpy(npos), 0.1, 50.0)
+    want = jl.box_only_loss_flat(jnp.asarray(box), jnp.asarray(target),
+                                 jnp.asarray(npos), 0.1, 50.0)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5)

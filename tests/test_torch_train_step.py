@@ -75,10 +75,10 @@ def _batches():
     return out
 
 
-def _jax_start():
+def _jax_start(name="efficientdet_d0"):
     """The JAX model, optimizer and train state at step 0:
     ``create_train_state``'s, with random variables and EMA tree."""
-    cfg = jax_cfg("efficientdet_d0", **TINY)
+    cfg = jax_cfg(name, **TINY)
     model = JaxDet(cfg)
     tcfg = jax_train_config()
     state = jax.jit(lambda k: jax_create(model, tcfg, k)[0])(
@@ -120,8 +120,8 @@ def runs(request, jax_start):
     return request.param, jax_start[3], states, metrics, batches
 
 
-def _port_model(variables):
-    cfg = get_efficientdet_config("efficientdet_d0", **TINY)
+def _port_model(variables, name="efficientdet_d0"):
+    cfg = get_efficientdet_config(name, **TINY)
     model = EfficientDet(cfg)
     load_jax_variables(model, variables)
     return model.to(memory_format=torch.channels_last)

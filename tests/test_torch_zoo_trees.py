@@ -1,0 +1,12 @@
+"""The variable trees of the zoo's ResNet, CSP and MixNet entries (resdet50, the four CSP detectors,
+mixdet_m / l): each at full width equal to
+the JAX model's, every parameter and statistic by flax path and shape
+(``torch_parity_helpers.check_zoo_tree``; group "resnet_csp_mixnet" of
+``ZOO_TREE_GROUPS``)."""
+import pytest
+from torch_parity_helpers import ZOO_TREE_GROUPS, check_zoo_tree
+
+
+@pytest.mark.parametrize("name", ZOO_TREE_GROUPS["resnet_csp_mixnet"])
+def test_zoo_variable_tree_matches_jax(name):
+    check_zoo_tree(name)
