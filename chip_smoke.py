@@ -155,8 +155,35 @@ Phases, each synchronised so that a fault shows where it happened:
      size, 90 classes, bf16, batch 2: one request through K2 -> K1 (once
      each), finite outputs of their shapes; build s, request ms and peak
      memory, a line an entry.
-Phases 10, 11 and 13 run with PyTorch's default cuDNN TF32 (the earlier
-phases turn it off), as a user runs the CLIs.
+ 14. data parallelism (data_parallel): each drive is a ``python -m
+     torch.distributed.run`` launch of this script's ``--rank`` mode
+     (rank_main), whose ranks print into ``<out>/rank<r>.log``: (a) two
+     ranks on cuda:0 over gloo (DP_BATCH images each): step 1 of
+     ``make_train_step(mesh=...)`` at D0@512, 90 classes, f32 with TF32
+     off, against one process on the global batch (losses and grad_norm
+     to rtol 2e-4, num_positives exactly, the update within 3 times the
+     relative L2 spread of one process on the batch reversed), a timed
+     window and a profiler window of its collectives (TF32 on), then the
+     pretrain CLI with ``--mesh 2`` (DP_STEPS steps, --eval-map every
+     DP_VAL_FREQ): the merged val loss and saved_best equal on both
+     ranks, the checkpoint written by rank 0 alone, K3 / K4 once a step
+     and a val batch and K1 once a val batch on each rank; (b) the CLI as
+     one rank over NCCL (``--mesh 1``), 3 steps; (c) ``validate --mesh 2``
+     over phase 9's fixture at 8 a rank against phase 9's metrics, the
+     ground truth at AP 1.0 through the merged evaluators, K2 and K1 once
+     a non-empty batch on each rank; (d) the meta driver with
+     ``--episode-mesh 2`` at its defaults for 2 phase-B updates, logs and
+     meta parameters equal on both ranks, K3 / K4 once a build, and one
+     update of ``make_sharded_meta_step`` on 4 phase-8 episodes (two a
+     rank) against ``train_episode``'s sequential accumulation to rtol
+     1e-5. (e) only where the machine has two cards or more: (a) with
+     phase 3's kernel cases on every rank's own card, (c) and (d) over
+     NCCL with one rank a card, and the train step's images/s at
+     DP_RATE_BATCH a card with 1, 2 and all cards; with one card it
+     logs that and goes on.
+Phases 10, 11, 13 and 14 run with PyTorch's default cuDNN TF32 (the
+earlier phases turn it off), as a user runs the CLIs; phase 14 turns it
+off for its equality step.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
 K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
 episode's query labels through the kernels against the plain ones, K1
@@ -170,6 +197,10 @@ Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
 
 Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
                                      $CUDA_HOME/bin, default /usr/local/cuda)
+       python3 chip_smoke.py --cards  (phases 1, 2 and 14 (e) alone, on
+                                     two cards or more)
+       (``python3 chip_smoke.py --rank <json>`` is one rank of phase 14,
+       started by its torchrun launches.)
 """
 import collections
 import contextlib
@@ -185,6 +216,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from types import SimpleNamespace
 
 import numpy as np
@@ -307,6 +339,17 @@ ZOO_SWEEP = (
     "tf_efficientdet_lite4")
 # the card as nvidia-smi names it (name, power limit), set by main(); the
 # meta path's measurements print it on their lines
+# data parallelism (phase 14): images a rank when two ranks share the card
+# (the pretrain CLI's run: DP_STEPS steps, validation of DP_VAL_STEPS
+# batches' images every DP_VAL_FREQ), images a card in the rate windows,
+# steps a window
+DP_BATCH = 16
+DP_STEPS = 4
+DP_VAL_FREQ = 2
+DP_VAL_STEPS = 4
+DP_RATE_BATCH = 32
+DP_RATE_STEPS = 6
+DP_PROFILE_STEPS = 2
 CARD = "not read"
 # CUDA runtime calls that put an operation on the card (profiler names)
 RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
@@ -2574,7 +2617,12 @@ def breadth_kernel_cases(gen):
                 f"bit-exact, box max abs err {err:.3g}")
 
 
-def main():
+def main(argv=()):
+    """Every phase (no arguments), or with ``--cards`` phases 1, 2 and
+    14 (e) alone, on a machine with two cards or more."""
+    if list(argv) not in ([], ["--cards"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2606,69 +2654,17 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"    {source}: {line.strip()}")
     log(f"[2] built {sorted(cuda_build.SOURCES)} in {time.time() - t0:.1f} s")
+    if argv:
+        check(torch.cuda.device_count() >= 2, "--cards needs two cards")
+        torch.backends.cudnn.allow_tf32 = True     # as phases 10-14
+        with tempfile.TemporaryDirectory() as tmp:
+            data_parallel_cards(tmp, torch.cuda.device_count())
+        print(smi)
+        return 0
 
     # 3. kernels vs plain versions on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for batch in (BATCH, 128):
-        for name, make in (("tied", tied_logits), ("random", random_logits)):
-            err = k2_compare(make(batch, gen))
-            log(f"[3] K2 {name} B={batch}: key bit-exact, energy max abs err "
-                f"{err:.3g}")
-    levels = tied_logits(3, gen, img=128)
-    plan = cuda_reduce.tile_plan([lvl.shape for lvl in levels], NUM_CLASSES)
-    check(plan.rows[-1] == 27 and not list(cuda_reduce.plan_tiles(plan))[-1][4],
-          "D0@128 at batch 3 must end on a ragged tile")
-    err = k2_compare(levels)
-    k2_compare(levels, energy=False)
-    k2_compare(tied_logits(BATCH, gen), energy=False)
-    log(f"[3] K2 D0@128 B=3 (ragged last tile, P7 27 rows): key bit-exact, "
-        f"energy max abs err {err:.3g}; energy=False at B=3 and {BATCH}: "
-        "key bit-exact")
-    for c in (20, 21):   # the kernel's 32-bit (even C) and 16-bit (odd) reads
-        err = k2_compare([
-            (torch.randn((2, 16 >> lvl, 16 >> lvl, 9 * c), generator=gen,
-                         device="cuda") * 2.0 - 3.0).to(torch.bfloat16)
-            for lvl in range(3)], num_classes=c)
-        log(f"[3] K2 C={c}: key bit-exact, energy max abs err {err:.3g}")
-    for batch, n in ((BATCH, 5000), (128, 5000), (2, 1001),
-                     (VAL_BATCH, 5000), (VAL_IMAGES % VAL_BATCH, 5000)):
-        boxes, scores = random_nms_inputs(batch, n, gen)
-        chosen = cuda_nms.device_cluster_size(torch.cuda.current_device(),
-                                              batch, n)
-        for soft in (False, True):
-            errs = [k1_compare(boxes, scores, soft, cluster=c)
-                    for c in (None,) + cuda_nms.CLUSTER_SIZES]
-            log(f"[3] K1 [{batch}, {n}] soft={soft}: keep equal at the "
-                f"wrapper's cluster ({chosen}) and at clusters "
-                f"{cuda_nms.CLUSTER_SIZES}, score max abs err "
-                f"{max(errs):.3g}")
-    anchor_boxes = torch.from_numpy(Anchors.from_config(
-        get_efficientdet_config("efficientdet_d0")).boxes).cuda()
-    label_inputs = {}
-    for batch in (TRAIN_BATCH, 128):
-        boxes, cls = ground_truth(batch, gen, cases=True)
-        label_inputs[batch] = (boxes, cls)
-        for unmatched in (0.5, 0.3):
-            err_k3, err, codes, (_, _, best) = label_compare(
-                anchor_boxes, boxes, cls, unmatched)
-            check(bool((codes[1] == -1).all()), "all-padding image matched")
-            check(int(best[0, 0]) == int(best[0, 1])
-                  and int(codes[0, best[0, 0]]) == 0,
-                  "identical rows: the lower row must take the anchor")
-            check(int(best[0, 2]) == 0 and int(codes[0, 0]) == 2,
-                  "a row overlapping nothing must claim anchor 0")
-            check(bool((codes == -2).any()) == (unmatched < 0.5),
-                  "ignore band")
-            log(f"[3] K3 / K4 [{batch}, {MAX_ROWS}] x {anchor_boxes.shape[0]}"
-                f" anchors, unmatched {unmatched}: match and codes "
-                f"bit-exact, class targets equal, box max abs err {err:.3g}"
-                f", {int((codes == -2).sum())} ignored")
-            if batch == TRAIN_BATCH:
-                err_match = err_k3
-    label_hazards(anchor_boxes, gen)
-    meta_kernel_cases(gen)
-    breadth_kernel_cases(gen)
-    sync()
+    anchor_boxes, label_inputs, err_match = kernel_cases(gen)
 
     # 4. main path: 3 requests of 16 canvases
     bench = create_model("efficientdet_d0", bench_task="predict",
@@ -2752,6 +2748,7 @@ def main():
         write_reference_pth(pth)
         metrics, _, bench, batches, times = validate_path(root, pth)
         validate_measures(bench, batches, metrics, times)
+        val_metrics = metrics
     sync()
     log(f"[9] phase 9 took {time.time() - t0:.1f} s")
     del bench, batches
@@ -2831,6 +2828,15 @@ def main():
     sync()
     log(f"[13] phase 13 took {time.time() - t0:.1f} s")
 
+    # 14. data parallelism: the pretrain CLI, validate and the meta driver
+    #     as ranks of torchrun (two on this card over gloo, one over NCCL),
+    #     each held against one process; across cards where there are
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_parallel(tmp, validate_metrics=val_metrics)
+    log(f"[14] phase 14 took {time.time() - t0:.1f} s")
+
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
              source=REPO_KERNELS["K1"][0], replaces=REPO_KERNELS["K1"][1],
@@ -2853,6 +2859,74 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_cases(gen, tag="[3]"):
+    """Phase 3: each kernel against its plain version on the current card
+    (the cases of the module's docstring). Returns (D0@512's anchor boxes
+    on the card, the batch-32 and batch-128 ground truth, K3's largest
+    error at batch 32)."""
+    for batch in (BATCH, 128):
+        for name, make in (("tied", tied_logits), ("random", random_logits)):
+            err = k2_compare(make(batch, gen))
+            log(f"{tag} K2 {name} B={batch}: key bit-exact, energy max abs err "
+                f"{err:.3g}")
+    levels = tied_logits(3, gen, img=128)
+    plan = cuda_reduce.tile_plan([lvl.shape for lvl in levels], NUM_CLASSES)
+    check(plan.rows[-1] == 27 and not list(cuda_reduce.plan_tiles(plan))[-1][4],
+          "D0@128 at batch 3 must end on a ragged tile")
+    err = k2_compare(levels)
+    k2_compare(levels, energy=False)
+    k2_compare(tied_logits(BATCH, gen), energy=False)
+    log(f"{tag} K2 D0@128 B=3 (ragged last tile, P7 27 rows): key bit-exact, "
+        f"energy max abs err {err:.3g}; energy=False at B=3 and {BATCH}: "
+        "key bit-exact")
+    for c in (20, 21):   # the kernel's 32-bit (even C) and 16-bit (odd) reads
+        err = k2_compare([
+            (torch.randn((2, 16 >> lvl, 16 >> lvl, 9 * c), generator=gen,
+                         device="cuda") * 2.0 - 3.0).to(torch.bfloat16)
+            for lvl in range(3)], num_classes=c)
+        log(f"{tag} K2 C={c}: key bit-exact, energy max abs err {err:.3g}")
+    for batch, n in ((BATCH, 5000), (128, 5000), (2, 1001),
+                     (VAL_BATCH, 5000), (VAL_IMAGES % VAL_BATCH, 5000)):
+        boxes, scores = random_nms_inputs(batch, n, gen)
+        chosen = cuda_nms.device_cluster_size(torch.cuda.current_device(),
+                                              batch, n)
+        for soft in (False, True):
+            errs = [k1_compare(boxes, scores, soft, cluster=c)
+                    for c in (None,) + cuda_nms.CLUSTER_SIZES]
+            log(f"{tag} K1 [{batch}, {n}] soft={soft}: keep equal at the "
+                f"wrapper's cluster ({chosen}) and at clusters "
+                f"{cuda_nms.CLUSTER_SIZES}, score max abs err "
+                f"{max(errs):.3g}")
+    anchor_boxes = torch.from_numpy(Anchors.from_config(
+        get_efficientdet_config("efficientdet_d0")).boxes).cuda()
+    label_inputs = {}
+    for batch in (TRAIN_BATCH, 128):
+        boxes, cls = ground_truth(batch, gen, cases=True)
+        label_inputs[batch] = (boxes, cls)
+        for unmatched in (0.5, 0.3):
+            err_k3, err, codes, (_, _, best) = label_compare(
+                anchor_boxes, boxes, cls, unmatched)
+            check(bool((codes[1] == -1).all()), "all-padding image matched")
+            check(int(best[0, 0]) == int(best[0, 1])
+                  and int(codes[0, best[0, 0]]) == 0,
+                  "identical rows: the lower row must take the anchor")
+            check(int(best[0, 2]) == 0 and int(codes[0, 0]) == 2,
+                  "a row overlapping nothing must claim anchor 0")
+            check(bool((codes == -2).any()) == (unmatched < 0.5),
+                  "ignore band")
+            log(f"{tag} K3 / K4 [{batch}, {MAX_ROWS}] x {anchor_boxes.shape[0]}"
+                f" anchors, unmatched {unmatched}: match and codes "
+                f"bit-exact, class targets equal, box max abs err {err:.3g}"
+                f", {int((codes == -2).sum())} ignored")
+            if batch == TRAIN_BATCH:
+                err_match = err_k3
+    label_hazards(anchor_boxes, gen)
+    meta_kernel_cases(gen)
+    breadth_kernel_cases(gen)
+    sync()
+    return anchor_boxes, label_inputs, err_match
 
 
 def reset_launches():
@@ -3033,6 +3107,704 @@ def throughput(bench, batch, gen, img=IMG, tag="[5]"):
                      (pre["img_scale"], pre["img_size"]), tag=tag)
 
 
+# ---------------------------------------------------------------------------
+# 14. data parallelism: ranked runs of the entry points under torchrun
+
+def torchrun(nproc, spec, tag, timeout=600):
+    """Run ``spec``'s rank drive (``rank_main``) as ``nproc`` processes of
+    ``python -m torch.distributed.run`` on this host, in a subprocess.
+    Returns each rank's result (``{out}/rank<r>.json``, rank order); fails
+    with the tail of the ranks' logs if the launch fails."""
+    out = spec["out"]
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.time()
+    # every rank is on this host: the groups' sockets on the loopback
+    env = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo",
+           **os.environ}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), os.path.abspath(__file__),
+         "--rank", json.dumps(spec)], capture_output=True, text=True,
+        timeout=timeout, env=env)
+    if proc.returncode:
+        for r in range(nproc):
+            path = f"{out}/rank{r}.log"
+            if os.path.exists(path):
+                for line in open(path).read().splitlines()[-15:]:
+                    log(f"{tag} rank {r}: {line}")
+        for line in proc.stderr.splitlines()[-30:]:
+            log(f"{tag} torchrun: {line}")
+        check(False, f"{tag} torchrun of {nproc} ranks ({spec['drive']}) "
+              f"exited {proc.returncode}")
+    results = [json.load(open(f"{out}/rank{r}.json")) for r in range(nproc)]
+    log(f"{tag} {nproc} ranks of {spec['drive']} ({spec.get('backend')}, "
+        f"{spec['device']}) took {time.time() - t0:.1f} s")
+    return results
+
+
+def rank_main(spec):
+    """One rank of a phase-14 launch (``chip_smoke.py --rank <spec>``,
+    started by torchrun): the drive ``spec['drive']`` with this script's
+    prints in ``{out}/rank<r>.log`` and its result in
+    ``{out}/rank<r>.json``."""
+    spec = json.loads(spec)
+    rank = int(os.environ["RANK"])
+    torch.backends.cudnn.allow_tf32 = spec.get("tf32", True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    global CARD
+    CARD = spec.get("card", CARD)
+    with open(f"{spec['out']}/rank{rank}.log", "w") as f, \
+            contextlib.redirect_stdout(f):
+        try:
+            result = RANK_DRIVES[spec["drive"]](spec)
+        except BaseException:
+            traceback.print_exc(file=f)
+            raise
+    result["rank"] = rank
+    with open(f"{spec['out']}/rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def dp_batch(batch, img, classes, seed=14):
+    """A global train batch made on the host from ``seed``: normal images
+    and 16 boxes an image (synthetic_boxes), padded to MAX_ROWS."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((batch, MAX_ROWS, 4), np.float32)
+    cls = np.full((batch, MAX_ROWS), -1, np.int32)
+    for i in range(batch):
+        boxes[i, :16] = synthetic_boxes(rng, 16, img)
+        cls[i, :16] = rng.integers(1, classes + 1, 16)
+    return {"image": torch.from_numpy(rng.normal(
+                0, 1, (batch, img, img, 3)).astype(np.float32)),
+            "bbox": torch.from_numpy(boxes), "cls": torch.from_numpy(cls)}
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN's f32 convolutions in f32 (TF32 off) inside the block."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def dp_train_setup(device, img, classes, overrides, batch):
+    """The train path of phase 14 through the user's entry points: D0 at
+    ``img`` (f32, seed 0), its train state and the global batch."""
+    bench = create_model("efficientdet_d0", bench_task="train",
+                         num_classes=classes, seed=0, device=device,
+                         image_size=(img, img), **overrides)
+    tcfg = default_detection_train_config()
+    state, tx = create_train_state(bench, tcfg)
+    return bench, state, tx, tcfg, dp_batch(batch, img, classes)
+
+
+def collective_window(step, state, local, steps, on_card):
+    """Time ``steps`` train steps, then profile as many: (ms a step, per
+    step: the ``all_reduce_sum`` collectives (the synced BatchNorm's,
+    forward and backward, the positives', the losses' and the
+    gradient's) and their host ms, the gradient all-reduce's share of it,
+    the NCCL kernels' device ms, which include their wait for the slowest
+    rank)."""
+    sync_if(on_card)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, local)
+    sync_if(on_card)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        for _ in range(steps):
+            state, _ = step(state, local)
+        sync_if(on_card)
+    spans = {"all_reduce_sum": [0, 0.0], "grad_all_reduce": [0, 0.0]}
+    device = 0.0
+    for e in prof.key_averages():
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            spans[e.key][0] += e.count
+            spans[e.key][1] += e.cpu_time_total / 1e3
+        elif "nccl" in e.key.lower() and e.device_type == DeviceType.CUDA:
+            device += e.self_device_time_total / 1e3
+    return step_ms, {
+        "allreduces": spans["all_reduce_sum"][0] / steps,
+        "allreduce_host_ms": round(spans["all_reduce_sum"][1] / steps, 3),
+        "of_it_gradient_ms": round(spans["grad_all_reduce"][1] / steps, 3),
+        "nccl_kernel_ms": round(device / steps, 3)}
+
+
+def rank_dp_pretrain(spec):
+    """Drive (a) on one rank: the data-parallel train step on this rank's
+    rows of a global batch, TF32 off (metrics, parameters and collectives
+    saved for the comparison with one process), its collective window
+    with TF32 as the launch has it, then the
+    pretrain CLI with validation and --eval-map (logs, launches, writes of
+    a checkpoint file); with ``spec['kernels']`` first phase 3's kernel
+    cases on this rank's card."""
+    from ood_object_detection_tpu_torch.parallel import create_mesh
+    mesh = create_mesh((-1,), ("data",), device=spec["device"],
+                       backend=spec["backend"])
+    on_card = mesh.device.type == "cuda"
+    result = {"device": str(mesh.device), "world": mesh.size}
+    if spec.get("kernels"):
+        kernel_cases(torch.Generator(device="cuda").manual_seed(mesh.rank))
+        result["kernel_cases"] = "passed"
+    if spec.get("step", True):
+        result.update(dp_step_rank(spec, mesh))
+    if spec.get("cli"):
+        result.update(dp_cli_rank(spec, on_card))
+    mesh.close()
+    return result
+
+
+def dp_step_rank(spec, mesh):
+    """Drive (a)'s step 1 and collective window on one rank (see
+    rank_dp_pretrain)."""
+    from ood_object_detection_tpu_torch.parallel import shard_batch
+    from ood_object_detection_tpu_torch.parallel.mesh import all_reduce_sum
+    on_card = mesh.device.type == "cuda"
+    result = {}
+    img, classes = spec["img"], spec["classes"]
+    bench, state, tx, tcfg, batch = dp_train_setup(
+        mesh.device, img, classes, spec["overrides"],
+        spec["batch"] * mesh.size)
+    step = make_train_step(bench, tx, Anchors.from_config(bench.config),
+                           tcfg, mesh=mesh, freeze_bn="backbone")
+    local = shard_batch(mesh, batch)
+    with torch.enable_grad():
+        sync_if(on_card)
+        reset_launches()
+        all_reduce_sum.calls = 0
+        with no_tf32():
+            state, metrics = step(state, local)
+        sync_if(on_card)
+        result["step1"] = {k: float(v) for k, v in metrics.items()}
+        result["step1_collectives"] = all_reduce_sum.calls
+        result["step1_launches"] = launch_counts()
+        torch.save({n: p.detach().cpu()
+                    for n, p in bench.model.named_parameters()},
+                   f"{spec['out']}/params{mesh.rank}.pt")
+        state, _ = step(state, local)           # warm-up with TF32 on
+        step_ms, window = collective_window(step, state, local,
+                                            spec["window"], on_card)
+    result["step_ms"], result["window"] = step_ms, window
+    del bench, state, tx, batch, local
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
+def dp_cli_rank(spec, on_card):
+    """Drive (a)'s pretrain CLI on one rank: its logs, launches,
+    collectives and the checkpoint files this rank wrote."""
+    from ood_object_detection_tpu_torch.parallel.mesh import all_reduce_sum
+    from ood_object_detection_tpu_torch.train import checkpoint as ckpt_mod
+    writes = []
+    write = ckpt_mod._write
+
+    def counted_write(path, payload):
+        writes.append(os.path.basename(path))
+        write(path, payload)
+    ckpt_mod._write = counted_write
+    reset_launches()
+    all_reduce_sum.calls = 0
+    try:
+        with torch.enable_grad():
+            _, _, logs = run_driver(pretrain.main, spec["cli"],
+                                    "[14] pretrain:")
+    finally:
+        ckpt_mod._write = write
+    sync_if(on_card)
+    return dict(cli_logs=logs, cli_launches=launch_counts(),
+                cli_collectives=all_reduce_sum.calls, ckpt_writes=writes)
+
+
+def rank_dp_validate(spec):
+    """Drive (c) on one rank: ``validate.main --mesh N`` (metrics, K1 /
+    K2 launches, this rank's batches), then the ground truth as
+    detections through the distributed evaluators (the oracle)."""
+    from ood_object_detection_tpu_torch.parallel import create_mesh
+    mesh = create_mesh((-1,), ("data",), device=spec["device"],
+                       backend=spec["backend"])
+    on_card = mesh.device.type == "cuda"
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        metrics = validate.main(spec["argv"])
+    sync_if(on_card)
+    launches = {"K1": cuda_nms.batched_nms.launches,
+                "K2": cuda_reduce.key_energy_reduce.launches}
+    args = validate.build_argparser().parse_args(spec["argv"])
+    cfg = get_efficientdet_config("efficientdet_d0").replace(
+        num_classes=NUM_CLASSES, image_size=(spec["img"], spec["img"]))
+    loader = validate.make_val_loader(args, cfg, mesh.device, mesh)
+    oracle = {"coco": CocoEvaluator(NUM_CLASSES, distributed=True),
+              "pascal": PascalEvaluator(NUM_CLASSES, distributed=True)}
+    rows = []
+    for b in loader:
+        rows.append(int(b["image"].shape[0]) if b else 0)
+        gt = target = None
+        if b:
+            target = {k: b[k] for k in ("bbox", "cls", "img_id")}
+            gt = torch.cat([b["bbox"][..., [1, 0, 3, 2]],
+                            torch.ones_like(b["cls"][..., None],
+                                            dtype=torch.float32),
+                            b["cls"][..., None].to(torch.float32)], dim=-1)
+            gt = torch.where((b["cls"] > 0)[..., None], gt,
+                             torch.zeros_like(gt))
+        for ev in oracle.values():
+            ev.add_predictions(gt, target)
+    ap = {"coco": oracle["coco"].evaluate()["map"],
+          "pascal": oracle["pascal"].evaluate()["mAP@0.5IOU"]}
+    mesh.close()
+    return {"metrics": metrics, "printed": out.getvalue().strip(),
+            "launches": launches, "rows": rows, "oracle": ap}
+
+
+def meta_dp_episodes(trainer, builder, colors, device, count):
+    """``count`` synthetic episodes (phase 8's) built from fixed seeds, the
+    same on every process that builds them on the same kind of card."""
+    import random
+    random.seed(14)          # the projection crops' jitter
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=device).manual_seed(14)
+    return [builder.build(*synthetic_episode(trainer.meta_cfg, rng, gen,
+                                             colors, trainer.device))
+            for _ in range(count)]
+
+
+def rank_dp_meta(spec):
+    """Drive (d) on one rank: the meta driver with --episode-mesh N at its
+    defaults (logs, launches, episodes built, final meta parameters),
+    then one meta update of ``make_sharded_meta_step`` on this rank's
+    share of a meta batch of phase-8 episodes (nesterov)."""
+    from ood_object_detection_tpu_torch.parallel import create_mesh
+    mesh = create_mesh((-1,), ("episode",), device=spec["device"],
+                       backend=spec["backend"])
+    on_card = mesh.device.type == "cuda"
+    calls = {}
+    reset_launches()
+    with counted(EpisodeBuilder, "build", calls), torch.enable_grad():
+        trainer, _, logs = run_driver(train_driver.main, spec["driver"],
+                                      "[14] meta driver:")
+    sync_if(on_card)
+    result = {"driver_logs": logs, "driver_launches": launch_counts(),
+              "builds": calls["build"]}
+    torch.save(_cpu(trainer.meta_params),
+               f"{spec['out']}/driver_meta{mesh.rank}.pt")
+    del trainer
+    meta_cfg = MetaConfig(optim="nesterov", **spec["meta_kw"])
+    trainer, builder, colors = meta_setup(
+        torch.Generator(device=mesh.device).manual_seed(0),
+        device=mesh.device, meta_cfg=meta_cfg, **spec["overrides"])
+    episodes = meta_dp_episodes(trainer, builder, colors, mesh.device,
+                                meta_cfg.meta_batch_size)
+    per = meta_cfg.meta_batch_size // mesh.size
+    with torch.enable_grad():
+        metrics = trainer.train_meta_batch_sharded(
+            episodes[mesh.rank * per:(mesh.rank + 1) * per], mesh)
+    sync_if(on_card)
+    torch.save(_cpu(trainer.meta_params),
+               f"{spec['out']}/sharded_meta{mesh.rank}.pt")
+    result["sharded_metrics"] = {k: float(v) for k, v in metrics.items()}
+    mesh.close()
+    return result
+
+
+def _cpu(tree):
+    return {t: {n: v.detach().cpu() for n, v in d.items()}
+            for t, d in tree.items()}
+
+
+def rank_dp_rate(spec):
+    """(e) on one rank: the data-parallel train step at ``spec['batch']``
+    images a rank, its time a step and its collective window."""
+    from ood_object_detection_tpu_torch.parallel import (create_mesh,
+                                                         shard_batch)
+    mesh = create_mesh((-1,), ("data",), device=spec["device"],
+                       backend=spec["backend"])
+    bench, state, tx, tcfg, batch = dp_train_setup(
+        mesh.device, spec["img"], spec["classes"], spec["overrides"],
+        spec["batch"] * mesh.size)
+    step = make_train_step(bench, tx, Anchors.from_config(bench.config),
+                           tcfg, mesh=mesh, freeze_bn="backbone")
+    local = shard_batch(mesh, batch)
+    on_card = mesh.device.type == "cuda"
+    with torch.enable_grad():
+        for _ in range(2):                      # warm-up
+            state, _ = step(state, local)
+        step_ms, window = collective_window(step, state, local,
+                                            spec["window"], on_card)
+    mesh.close()
+    return {"step_ms": step_ms, "window": window, "peak_gib":
+            torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0}
+
+
+RANK_DRIVES = {"pretrain": rank_dp_pretrain, "validate": rank_dp_validate,
+               "meta": rank_dp_meta, "rate": rank_dp_rate}
+
+
+def params_close(got, want, before, rtol=5e-4, atol=1e-5):
+    """Two parameter dicts after one step from ``before``: (the largest
+    |got - want| - atol - rtol |want| (<= 0: within the tolerance), its
+    parameter, the elements beyond it, the difference of the two updates
+    in relative L2)."""
+    worst, over, diff, norm = (-math.inf, None), 0, 0.0, 0.0
+    for n, w in want.items():
+        excess = (got[n] - w).abs() - atol - rtol * w.abs()
+        worst = max(worst, (float(excess.max()), n))
+        over += int((excess > 0).sum())
+        diff += float(((got[n] - w) ** 2).sum())
+        norm += float(((w - before[n]) ** 2).sum())
+    return worst[0], worst[1], over, math.sqrt(diff / norm)
+
+
+def dp_pretrain_path(tmp, device="cuda:0", backend="gloo", nproc=2,
+                     img=IMG, classes=NUM_CLASSES, batch=DP_BATCH,
+                     overrides=None, steps=DP_STEPS, val_freq=DP_VAL_FREQ,
+                     val_steps=DP_VAL_STEPS, cli_extra=(), kernels=False,
+                     tag="[14] (a)"):
+    """Drive (a): ``nproc`` ranks on ``device`` (``cuda`` alone: one card a
+    rank) over ``backend``. First the data-parallel step's step 1 against
+    one process on the global batch from the same weights, both in f32
+    with cuDNN's TF32 off: losses and grad_norm to rtol 2e-4,
+    num_positives exactly, and the parameters: the two updates' relative
+    L2 difference at most 3 times (and 1e-5 at least) what one process's
+    update moves when it takes the same batch in reverse order (the
+    spread of the same sums in another order; the elements beyond rtol
+    5e-4 / atol 1e-5 are logged for both). Then the pretrain CLI, with
+    TF32 as phase 10 has it: the merged val loss and saved_best equal on
+    every rank, the checkpoint written by rank 0 alone, K3 / K4 once a
+    step and a val batch and K1 once a val batch on every rank. Returns
+    the ranks' results."""
+    overrides = overrides or {}
+    on_card = torch.device(device).type == "cuda"
+    out = f"{tmp}/dp_pretrain_{nproc}_{backend}"
+    cli = ["--num-classes", str(classes), "--batch-size", str(batch),
+           "--steps", str(steps), "--val-freq", str(val_freq),
+           "--val-steps", str(val_steps), "--log-freq", str(val_freq),
+           "--eval-map", "--workers", "4", "--mesh", str(nproc),
+           "--device", device, "--dist-backend", backend,
+           "--checkpoint-dir", f"{out}/ck", "--per-cat-dir", f"{out}/pc",
+           "--log-file", f"{out}/metrics.jsonl"] + list(cli_extra)
+    ranks = torchrun(nproc, dict(
+        drive="pretrain", out=out, device=device, backend=backend, img=img,
+        classes=classes, batch=batch, overrides=overrides, cli=cli,
+        window=DP_PROFILE_STEPS, kernels=kernels, card=CARD), tag)
+
+    # the same step in this process on the global batch, and again on the
+    # batch in reverse order
+    one_device = "cuda:0" if on_card else device
+    runs = []
+    with no_tf32():
+        for reverse in (False, True):
+            bench, state, tx, tcfg, gbatch = dp_train_setup(
+                one_device, img, classes, overrides, batch * nproc)
+            before = {n: p.detach().cpu().clone()
+                      for n, p in bench.model.named_parameters()}
+            step = make_train_step(bench, tx, Anchors.from_config(
+                bench.config), tcfg, freeze_bn="backbone")
+            with torch.enable_grad():
+                _, metrics = step(state, {
+                    k: (v.flip(0) if reverse else v).to(one_device)
+                    for k, v in gbatch.items()})
+            sync_if(on_card)
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         {n: p.detach().cpu().clone()
+                          for n, p in bench.model.named_parameters()}))
+            del bench, state, tx, gbatch
+    (want, ref), (reversed_metrics, reversed_params) = runs
+    floor = params_close(reversed_params, ref, before)
+    gaps = [params_close(torch.load(f"{out}/params{r}.pt"), ref, before)
+            for r in range(nproc)]
+    log(f"{tag} step 1 (f32, TF32 off), one process x {batch * nproc}: "
+        f"{want}; the batch reversed: {reversed_metrics}; by rank: "
+        f"{[r['step1'] for r in ranks]}")
+    log(f"{tag} parameters after step 1 against one process's (the largest "
+        "excess over rtol 5e-4 / atol 1e-5, its parameter, the elements "
+        "beyond, the updates' relative L2 difference): one process on the "
+        f"batch reversed {floor}; by rank {gaps}")
+    bound = max(3 * floor[3], 1e-5)
+    for r, res in enumerate(ranks):
+        got = res["step1"]
+        for k in ("loss", "class_loss", "box_loss", "grad_norm"):
+            check(abs(got[k] - want[k]) <= 2e-4 * abs(want[k]),
+                  f"{tag} rank {r} step 1 {k} {got[k]} vs one process "
+                  f"{want[k]}")
+        check(got["num_positives"] == want["num_positives"],
+              f"{tag} rank {r} num_positives {got['num_positives']} vs "
+              f"{want['num_positives']}")
+        check(gaps[r][3] <= bound, f"{tag} rank {r}: the update differs "
+              f"from one process's by {gaps[r][3]:.3g} (relative L2), "
+              f"beyond {bound:.3g}")
+        if on_card:
+            check(res["step1_launches"]["K3"] == res["step1_launches"]["K4"]
+                  == 1, f"{tag} rank {r} step launches "
+                  f"{res['step1_launches']}")
+    rel = {k: abs(ranks[0]["step1"][k] - want[k]) / abs(want[k])
+           for k in ("loss", "class_loss", "box_loss", "grad_norm")}
+    log(f"{tag} step 1 of {nproc} ranks x {batch} vs one process x "
+        f"{batch * nproc}: relative differences {rel}, num_positives "
+        f"{want['num_positives']:.0f} equal, the update within {bound:.3g} "
+        f"relative L2; {ranks[0]['step1_collectives']} collectives a step")
+    for r, res in enumerate(ranks):
+        if kernels:
+            check(res.get("kernel_cases") == "passed",
+                  f"{tag} rank {r}: phase 3's kernel cases did not run")
+            log(f"{tag} rank {r} on {res['device']}: phase 3's K1-K4 cases "
+                "against their plain versions passed on this card")
+        log(f"{tag} [{CARD}] rank {r} ({res['device']}, {backend}): "
+            f"{res['step_ms']:.3f} ms a step at {batch} a rank, "
+            f"{batch * nproc * 1e3 / res['step_ms']:.2f} images/s; "
+            f"collectives a step {res['window']}")
+
+    logs = [res["cli_logs"] for res in ranks]
+
+    def rows(log_, key):
+        return [(e["step"], e[key]) for e in log_ if key in e]
+    val, best = [rows(x, "val_loss") for x in logs], \
+        [rows(x, "saved_best") for x in logs]
+    check(val[0] and all(v == val[0] for v in val),
+          f"{tag} merged val losses differ between ranks: {val}")
+    check(best[0] and all(b == best[0] for b in best),
+          f"{tag} saved_best decisions differ between ranks: {best}")
+    check([e["step"] for e in logs[0] if "val_mAP" in e]
+          == list(range(val_freq, steps + 1, val_freq)),
+          f"{tag} val_mAP not logged at each validation")
+    check(ranks[0]["ckpt_writes"] and not any(res["ckpt_writes"]
+                                              for res in ranks[1:]),
+          f"{tag} checkpoint writes by rank: "
+          f"{[res['ckpt_writes'] for res in ranks]}")
+    check(not [f for f in os.listdir(f"{out}/ck") if ".tmp" in f]
+          and CheckpointManager(f"{out}/ck").latest_step() == steps,
+          f"{tag} checkpoint directory {os.listdir(f'{out}/ck')}")
+    val_batches = (steps // val_freq) * -(-val_steps // nproc)
+    if on_card:
+        want_l = {"K1": val_batches, "K2": 0, "K3": steps + val_batches,
+                  "K4": steps + val_batches}
+        for r, res in enumerate(ranks):
+            check(res["cli_launches"] == want_l,
+                  f"{tag} rank {r} CLI launches {res['cli_launches']}, not "
+                  f"{want_l}")
+    rates = [[e["img_per_sec"] for e in x if "img_per_sec" in e]
+             for x in logs]
+    log(f"{tag} pretrain CLI: {steps} steps, val losses {val[0]}, "
+        f"saved_best {best[0]} on every rank; checkpoint files written by "
+        f"rank 0 only ({ranks[0]['ckpt_writes']}); launches by rank "
+        f"{[res['cli_launches'] for res in ranks]}; img_per_sec a rank by "
+        f"log step {rates}")
+    return ranks
+
+
+def dp_nccl_path(tmp, device="cuda", tag="[14] (b)"):
+    """Drive (b): the pretrain CLI as one rank over NCCL (``--mesh 1``
+    under torchrun), 3 steps: the data-parallel path runs on the card."""
+    out = f"{tmp}/dp_nccl"
+    ranks = torchrun(1, dict(
+        drive="pretrain", out=out, device=device, backend="nccl", step=False,
+        cli=["--num-classes", str(NUM_CLASSES), "--batch-size",
+             str(DP_BATCH), "--steps", "3", "--val-freq", "100",
+             "--log-freq", "3", "--workers", "4", "--mesh", "1",
+             "--device", device, "--checkpoint-dir", f"{out}/ck",
+             "--per-cat-dir", f"{out}/pc"], card=CARD), tag)
+    res = ranks[0]
+    check(res["cli_collectives"] >= 3 * 3,
+          f"{tag} the data-parallel step ran {res['cli_collectives']} "
+          "collectives in 3 steps")
+    check(res["cli_launches"]["K3"] == res["cli_launches"]["K4"] == 3,
+          f"{tag} launches {res['cli_launches']}")
+    check(any("loss" in e for e in res["cli_logs"]), f"{tag} no loss logged")
+    log(f"{tag} [{CARD}] the pretrain CLI as one rank over nccl: 3 steps at "
+        f"{DP_BATCH}, {res['cli_collectives']} collectives, launches "
+        f"{res['cli_launches']}, logs {res['cli_logs']}")
+    return res
+
+
+def dp_validate_path(tmp, device="cuda:0", backend="gloo", nproc=2,
+                     img=IMG, batch=VAL_BATCH, n_images=VAL_IMAGES,
+                     one=None, tag="[14] (c)"):
+    """Drive (c): ``validate --mesh N`` over phase 9's fixture (bf16,
+    energy OOD) against one process (``one``: phase 9's metrics on the
+    same fixture and weights, else run here): the same images and metrics
+    (AP to 1e-3: the last batch runs at another size on rank 0), the
+    ground truth at AP 1.0 through the merged evaluators, K2 and K1 once
+    a non-empty batch on every rank."""
+    on_card = torch.device(device).type == "cuda"
+    out = f"{tmp}/dp_validate_{nproc}_{backend}"
+    root, pth = f"{tmp}/coco", f"{tmp}/d0.pth"
+    if not os.path.exists(root):
+        write_coco_fixture(root, n=n_images)
+        write_reference_pth(pth)
+    common = ["--dataset", "coco2017", "--data", root, "--checkpoint", pth,
+              "--batch-size", str(batch), "--ood-method", "energy",
+              "--compute-dtype", "bfloat16", "--image-size", str(img),
+              "--workers", "2"]
+    ranks = torchrun(nproc, dict(
+        drive="validate", out=out, device=device, backend=backend, img=img,
+        argv=common + ["--mesh", str(nproc), "--device", device,
+                       "--dist-backend", backend], card=CARD), tag)
+    if one is None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            one = validate.main(common + ["--device",
+                                          "cuda:0" if on_card else device])
+        sync_if(on_card)
+    for r, res in enumerate(ranks):
+        m = res["metrics"]
+        check(m["images"] == one["images"] == n_images,
+              f"{tag} rank {r} evaluated {m['images']} of {n_images}")
+        diff = {k: abs(m[k] - one[k]) for k in one
+                if k not in ("img_per_sec",) and k in m}
+        check(set(m) == set(one) and all(v <= 1e-3 for v in diff.values()),
+              f"{tag} rank {r} metrics {m} vs one process {one}")
+        check(all(abs(v - 1.0) < 1e-12 for v in res["oracle"].values()),
+              f"{tag} rank {r} oracle {res['oracle']}")
+        batches = sum(1 for n in res["rows"] if n)
+        if on_card:
+            check(res["launches"] == {"K1": batches, "K2": batches},
+                  f"{tag} rank {r}: K1 / K2 must launch once a batch "
+                  f"({batches}): {res['launches']}")
+        log(f"{tag} rank {r}: rows a batch {res['rows']}, launches "
+            f"{res['launches']}, metrics {m}; largest difference from one "
+            f"process {max(diff.values()):.3g}; ground truth as detections "
+            f"{res['oracle']}")
+    log(f"{tag} one process: {one}")
+    return ranks, one
+
+
+def dp_meta_path(tmp, device="cuda:0", backend="gloo", nproc=2,
+                 driver_extra=(), overrides=None, meta_kw=None,
+                 tag="[14] (d)"):
+    """Drive (d): the meta driver with --episode-mesh N at its defaults
+    for 2 phase-B meta updates (meta batch 4, 4 / N episodes a rank an
+    update): the logged meta-batch means and final meta parameters equal
+    on every rank, K3 / K4 once an episode built; and one update of
+    ``make_sharded_meta_step`` on a meta batch of phase-8 episodes
+    against ``train_episode``'s sequential accumulation on this process
+    (nesterov, as the CPU tests: adam's first step turns rounding into
+    +-lr), meta parameters to rtol 1e-5. ``meta_kw`` / ``overrides``
+    shrink the sharded step's MetaConfig / model (the CPU rehearsal)."""
+    overrides, meta_kw = overrides or {}, meta_kw or {}
+    on_card = torch.device(device).type == "cuda"
+    out = f"{tmp}/dp_meta_{nproc}_{backend}"
+    meta_cfg = MetaConfig(optim="nesterov", **meta_kw)
+    iters = 2 * MetaConfig().meta_batch_size // nproc
+    ranks = torchrun(nproc, dict(
+        drive="meta", out=out, device=device, backend=backend,
+        overrides=overrides, meta_kw=meta_kw, card=CARD,
+        driver=list(driver_extra) + [
+            "--proj-iters", "0", "--total-iters", str(iters),
+            "--val-freq", "100", "--log-freq", str(iters // 2),
+            "--episode-mesh", str(nproc), "--device", device,
+            "--dist-backend", backend, "--checkpoint-dir", f"{out}/ck",
+            "--per-cat-dir", f"{out}/pc"]), tag)
+    logs = [[{k: v for k, v in e.items() if k != "eps_per_sec"}
+             for e in res["driver_logs"]] for res in ranks]
+    check(all(x == logs[0] for x in logs) and logs[0][-1]["final_iter"]
+          == iters, f"{tag} the ranks' logs differ: {logs}")
+    metas = [torch.load(f"{out}/driver_meta{r}.pt") for r in range(nproc)]
+    check(all(torch.equal(m[t][n], v) for m in metas[1:]
+              for t, d in metas[0].items() for n, v in d.items()),
+          f"{tag} the ranks' meta parameters differ after the driver")
+    for r, res in enumerate(ranks):
+        if on_card:
+            la = res["driver_launches"]
+            check(la["K3"] == la["K4"] == res["builds"] > 0 and la["K2"] == 0,
+                  f"{tag} rank {r}: K3 / K4 once a build ({res['builds']}): "
+                  f"{la}")
+    log(f"{tag} meta driver --episode-mesh {nproc}: {iters} phase-B "
+        f"iterations a rank (2 meta updates), logs equal on every rank "
+        f"{logs[0]}, builds {[res['builds'] for res in ranks]}, launches "
+        f"{[res['driver_launches'] for res in ranks]}; the final meta "
+        "parameters equal on every rank")
+
+    one_device = "cuda:0" if on_card else device
+    trainer, builder, colors = meta_setup(
+        torch.Generator(device=one_device).manual_seed(0), device=one_device,
+        meta_cfg=meta_cfg, **overrides)
+    before = _cpu(trainer.meta_params)
+    episodes = meta_dp_episodes(trainer, builder, colors, one_device,
+                                meta_cfg.meta_batch_size)
+    with torch.enable_grad():
+        seq = [trainer.train_episode(b, phase_a=False) for b in episodes]
+    sync_if(on_card)
+    check(seq[-1].get("meta_step"), f"{tag} no sequential meta step")
+    want = _cpu(trainer.meta_params)
+    worst = 0.0
+    update = max(float((w - before[t][n]).abs().max())
+                 for t, d in want.items() for n, w in d.items())
+    for r in range(nproc):
+        got = torch.load(f"{out}/sharded_meta{r}.pt")
+        for t, d in want.items():
+            for n, w in d.items():
+                g = got[t][n]
+                excess = float(((g - w).abs() - 1e-5 * w.abs()).max())
+                check(excess <= 1e-8, f"{tag} rank {r} {t} {n} beyond rtol "
+                      f"1e-5 of the sequential step by {excess:.3g}")
+                worst = max(worst, float((g - w).abs().max()))
+        for k, v in ranks[r]["sharded_metrics"].items():
+            m = float(np.mean([float(s[k]) for s in seq]))
+            check(abs(v - m) <= 1e-5 * abs(m) + 1e-7,
+                  f"{tag} rank {r} metric {k} {v} vs sequential {m}")
+    log(f"{tag} make_sharded_meta_step over {nproc} ranks x "
+        f"{meta_cfg.meta_batch_size // nproc} episodes equals train_episode's "
+        f"sequential accumulation of {meta_cfg.meta_batch_size}: meta "
+        f"parameters within rtol 1e-5, the largest difference {worst:.3g} "
+        f"against the largest update {update:.3g}")
+    return ranks
+
+
+def data_parallel(tmp, validate_metrics=None):
+    """Phase 14 on one card: two ranks on cuda:0 over gloo for (a), (c)
+    (against ``validate_metrics``, phase 9's, when given) and (d), one
+    rank over NCCL for (b); then (e) where the machine has two cards or
+    more."""
+    t0 = time.time()
+    dp_pretrain_path(tmp)
+    dp_nccl_path(tmp)
+    dp_validate_path(tmp, one=validate_metrics)
+    dp_meta_path(tmp)
+    log(f"[14] (a)-(d) took {time.time() - t0:.1f} s")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[14] (e) skipped: this machine has a single card ({CARD})")
+        return
+    data_parallel_cards(tmp, cards)
+
+
+def data_parallel_cards(tmp, cards):
+    """Phase 14 (e): (a) with phase 3's kernel cases on every rank's own
+    card, (c) and (d) over NCCL with one rank a card; then the train step's
+    images/s at DP_RATE_BATCH a card with 1, 2, ... ``cards`` ranks and
+    its collectives."""
+    t0 = time.time()
+    dp_pretrain_path(tmp, device="cuda", backend="nccl", nproc=cards,
+                     kernels=True, tag="[14] (e)")
+    dp_validate_path(tmp, device="cuda", backend="nccl", nproc=cards,
+                     tag="[14] (e)")
+    dp_meta_path(tmp, device="cuda", backend="nccl", nproc=cards,
+                 tag="[14] (e)")
+    worlds = sorted({1, 2, cards})
+    for world in worlds:
+        ranks = torchrun(world, dict(
+            drive="rate", out=f"{tmp}/dp_rate_{world}", device="cuda",
+            backend="nccl", img=IMG, classes=NUM_CLASSES,
+            batch=DP_RATE_BATCH, overrides={}, window=DP_RATE_STEPS,
+            card=CARD), "[14] (e)")
+        slowest = max(res["step_ms"] for res in ranks)
+        log(f"[14] (e) [{CARD}] train step D0@512 f32 x {DP_RATE_BATCH} a "
+            f"card, {world} rank(s) over nccl: {slowest:.3f} ms a step "
+            f"(slowest rank), {world * DP_RATE_BATCH * 1e3 / slowest:.2f} "
+            f"images/s; rank 0 collectives a step {ranks[0]['window']}; "
+            f"peak {max(r['peak_gib'] for r in ranks):.2f} GiB")
+    log(f"[14] (e) took {time.time() - t0:.1f} s")
+
+
 if __name__ == "__main__":
     with torch.no_grad():
-        sys.exit(main())
+        sys.exit(rank_main(sys.argv[2]) if sys.argv[1:2] == ["--rank"]
+                 else main(sys.argv[1:]))

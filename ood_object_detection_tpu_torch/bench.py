@@ -55,6 +55,22 @@ class DetBenchPredict(nn.Module):
             max_det_per_image=cfg.max_det_per_image, soft_nms=cfg.soft_nms,
             ood_method=self.ood_method, topk_method=cfg.topk_method)
 
+    def sharded(self, mesh):
+        """The data-parallel predict step over ``mesh`` (JAX's
+        ``shard_map`` predict): each process holds its rows of the global
+        batch (``parallel.shard_batch`` or a per-process loader) and runs
+        the whole predict on them, K2 -> top-k -> K1 on its own card,
+        with no collective inside the step (images are independent).
+        Returns ``step(x_local) -> this rank's outputs``;
+        ``parallel.all_gather_detections`` reassembles the global batch."""
+        if next(self.parameters()).device != mesh.device:
+            raise ValueError(f"the bench is on {next(self.parameters()).device}"
+                             f", the mesh's rank on {mesh.device}")
+
+        def step(x, img_info=None):
+            return self(x, img_info)
+        return step
+
 
 class DetBenchTrain(nn.Module):
     """(images, padded ground truth) -> loss dict, labeling the anchors on

@@ -186,8 +186,15 @@ class PrefetchLoader:
     (``re_mode``, up to ``re_count`` rectangles), drawn from a generator on
     the device seeded by (seed, epoch, batch), as the JAX loader seeds
     its key. ``device``: the CUDA card when None (raises without one), or
-    the device named. The JAX loader's per-process split of the sample
-    order waits for the port's data parallelism (ROADMAP Queue 1 item 7).
+    the device named.
+
+    Data parallelism: ``process_index`` / ``process_count`` split the
+    sample order per process as the JAX loader does (the reference
+    samplers, effdet/data/loader.py:207-214): the epoch order (shuffled
+    with a seed every process shares, or sequential) is padded by
+    wrapping to a multiple of ``process_count``, then strided
+    ``order[rank::world]``, so the ranks hold disjoint samples (up to the
+    pad's wrapped repeats) and as many batches each.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -197,7 +204,11 @@ class PrefetchLoader:
                  device: Optional[Union[str, torch.device]] = None,
                  normalize: bool = True, mean=None, std=None,
                  re_prob: float = 0.0, re_mode: str = "pixel",
-                 re_count: int = 1):
+                 re_count: int = 1, process_index: int = 0,
+                 process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} out of range "
+                             f"for process_count {process_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -217,6 +228,8 @@ class PrefetchLoader:
         self.re_prob = re_prob
         self.re_mode = re_mode
         self.re_count = re_count
+        self.process_index = process_index
+        self.process_count = process_count
         # epoch counter: each __iter__ pass reshuffles with a fresh
         # (seed, epoch) stream, the DistributedSampler.set_epoch semantic
         self._epoch = 0
@@ -225,15 +238,32 @@ class PrefetchLoader:
         self._epoch = epoch
 
     def _epoch_order(self, epoch: int) -> np.ndarray:
-        """The sample order of one epoch (a (seed, epoch) shuffle)."""
+        """This process's sample order of one epoch (a (seed, epoch)
+        shuffle every process shares, wrap-padded and strided by rank)."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, epoch)).shuffle(order)
+        world = self.process_count
+        if world > 1:
+            total = -(-len(order) // world) * world
+            if total > len(order):
+                order = np.concatenate([order, order[:total - len(order)]])
+            order = order[self.process_index::world]
         return order
 
+    def _batches(self, epoch: int) -> List[np.ndarray]:
+        """The sample indices of each batch of one epoch."""
+        order = self._epoch_order(epoch)
+        batches = [order[i:i + self.batch_size]
+                   for i in range(0, len(order), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        return batches
+
     def __len__(self):
-        n = len(self.dataset) // self.batch_size
-        if not self.drop_last and len(self.dataset) % self.batch_size:
+        per_proc = -(-len(self.dataset) // self.process_count)
+        n = per_proc // self.batch_size
+        if not self.drop_last and per_proc % self.batch_size:
             n += 1
         return n
 
@@ -263,11 +293,7 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         epoch = self._epoch
         self._epoch += 1
-        order = self._epoch_order(epoch)
-        batches = [order[i:i + self.batch_size]
-                   for i in range(0, len(order), self.batch_size)]
-        if self.drop_last:
-            batches = [b for b in batches if len(b) == self.batch_size]
+        batches = self._batches(epoch)
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -282,6 +308,9 @@ class PrefetchLoader:
                     for bi, idxs in enumerate(batches):
                         if stop.is_set():
                             return
+                        if not len(idxs):       # a rank's empty share
+                            q.put({})
+                            continue
                         samples = list(pool.map(self.dataset.__getitem__,
                                                 idxs))
                         q.put(self._to_device(
@@ -323,12 +352,19 @@ def create_loader(dataset, input_size: Tuple[int, int], batch_size: int,
     """Dataset + transform + prefetch loader (reference create_loader,
     loader.py:173-232) on ``device`` (the card when None). mean/std default
     to ImageNet; ``re_prob > 0`` erases rectangles of the training batches
-    after normalisation (loader.py:115-130). The per-process split
-    (``distributed=True``) is not ported yet and raises."""
+    after normalisation (loader.py:115-130). ``distributed=True`` splits
+    the samples over the processes of the launched group (rank and world
+    size of ``torch.distributed``); outside one it raises."""
+    process_index, process_count = 0, 1
     if distributed:
-        raise NotImplementedError(
-            "the per-process data split is not ported yet (ROADMAP Queue 1 "
-            "item 7, data parallelism)")
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "distributed=True needs the process group of a launched "
+                "run: start one process a card with torchrun (python -m "
+                "torch.distributed.run --nproc-per-node N ...) and "
+                "parallel.create_mesh")
+        process_index, process_count = dist.get_rank(), dist.get_world_size()
     if getattr(dataset, "transform", None) is None and hasattr(dataset, "transform"):
         tf = (transforms_coco_train(input_size, fill_color=fill_color)
               if is_training else
@@ -340,4 +376,5 @@ def create_loader(dataset, input_size: Tuple[int, int], batch_size: int,
         dataset, batch_size=batch_size, shuffle=is_training, workers=workers,
         max_instances=max_instances, drop_last=is_training, seed=seed,
         mean=mean, std=std, re_prob=re_prob if is_training else 0.0,
-        re_mode=re_mode, re_count=re_count, device=device)
+        re_mode=re_mode, re_count=re_count, device=device,
+        process_index=process_index, process_count=process_count)

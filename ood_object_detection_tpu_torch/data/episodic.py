@@ -171,7 +171,8 @@ class EpisodicDataset:
                  query_source, model_cfg: ModelConfig, meta_cfg: MetaConfig,
                  train_cats: Sequence[int], val_cats: Sequence[int],
                  val_freq: int = 400, num_val_episodes: int = 50,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, process_index: int = 0,
+                 process_count: int = 1):
         self.support_source = support_source
         self.query_source = query_source
         self.model_cfg = model_cfg
@@ -185,12 +186,17 @@ class EpisodicDataset:
                     f"{name} categories, got {len(ls)}: {ls}")
         self.val_freq = val_freq
         self.num_val_episodes = num_val_episodes
-        # one process draws the whole stream: the per-process split of a
-        # data-parallel run waits for ROADMAP Queue 1 item 7
-        self.rng = random.Random(seed)
+        # each process of a data-parallel run assembles its own episodes
+        # (seed * process_count + process_index, the JAX stream's); the
+        # val cadence stays aligned across processes
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} out of range "
+                             f"for process_count {process_count}")
+        proc_seed = seed * process_count + process_index
+        self.rng = random.Random(proc_seed)
         # out-of-stream episodes (known_eval_episode) draw from their
         # own rng: no cross-thread contention with the prefetch producer
-        self._eval_rng = random.Random(seed + 0x5EED)
+        self._eval_rng = random.Random(proc_seed + 0x5EED)
         self.builder = EpisodeBuilder(model_cfg, meta_cfg, device=device)
 
         mcfg = meta_cfg

@@ -38,7 +38,8 @@ class PretrainEpisodeStream:
                  train_cats: Sequence[int], val_cats: Sequence[int],
                  num_qry: int = 8, val_freq: int = 400,
                  num_val_batches: int = 8, max_instances: int = 100,
-                 seed: int = 0, random_trans: bool = False):
+                 seed: int = 0, random_trans: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         self.source = query_source
         self.train_cats = list(train_cats)
         self.val_cats = list(val_cats) or list(train_cats)
@@ -46,9 +47,13 @@ class PretrainEpisodeStream:
         self.val_freq = val_freq
         self.num_val_batches = num_val_batches
         self.max_instances = max_instances
-        # one process draws the whole stream: the per-process split of a
-        # data-parallel run waits for ROADMAP Queue 1 item 7
-        self.rng = random.Random(seed)
+        # each process of a data-parallel run draws its own stream
+        # (seed * process_count + process_index, the JAX stream's); the
+        # val cadence (i % val_freq) stays aligned across processes
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} out of range "
+                             f"for process_count {process_count}")
+        self.rng = random.Random(seed * process_count + process_index)
         # reference default: train items are letterboxed too; jitter+flip
         # only behind random_trans (preloader.py:71-76)
         self.eval_tf = transforms_coco_eval(image_size)

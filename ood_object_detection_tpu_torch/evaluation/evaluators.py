@@ -1,6 +1,6 @@
 """Copy of ``ood_object_detection_tpu.evaluation.evaluators``, taking torch
-tensors as well as numpy arrays; the cross-process merge waits for the
-port's data parallelism (ROADMAP Queue 1 item 7) and raises.
+tensors as well as numpy arrays; the cross-process merge gathers every
+rank's batch over the gloo group of ``parallel.create_mesh``.
 
 User-facing evaluators binding predictions to the metric cores.
 
@@ -35,11 +35,13 @@ def _to_numpy(x):
 class Evaluator:
     """Base: accumulate (detections, targets); evaluate() -> metrics dict.
 
-    With ``distributed=True`` and a ``torch.distributed`` group of more
-    than one process, ``add_predictions`` raises: the merge across
-    processes (the reference's all_gather_container,
-    effdet/evaluator.py:36-39) is not ported yet. Single-process runs merge
-    nothing."""
+    With ``distributed=True`` and a launched mesh of more than one process
+    (``parallel.create_mesh``), every ``add_predictions`` first gathers
+    every rank's detections and targets (the reference's
+    all_gather_container, effdet/evaluator.py:36-39) and adds them in
+    rank order, so each rank accumulates the whole split. A rank with no
+    rows in a batch takes part with ``detections=None``. Every rank must
+    call it as often; single-process runs merge nothing."""
 
     def __init__(self, distributed: bool = False):
         self._lock = threading.Lock()
@@ -54,14 +56,16 @@ class Evaluator:
             return detections, target
         if not self.distributed:
             return detections, target
-        import torch.distributed as dist
+        from ..parallel.mesh import process_gather
 
-        if not (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            return detections, target
-        raise NotImplementedError(
-            "merging detections across processes is not ported yet "
-            "(ROADMAP Queue 1 item 7, data parallelism)")
+        mine = None if detections is None else (
+            _to_numpy(detections), {k: _to_numpy(v) for k, v in target.items()})
+        parts = [p for p in process_gather(mine) if p is not None]
+        if not parts:
+            return None, None
+        det = np.concatenate([d for d, _ in parts])
+        return det, {k: np.concatenate([t[k] for _, t in parts])
+                     for k in parts[0][1]}
 
     def add_predictions(self, detections, target: Dict):
         raise NotImplementedError
@@ -81,9 +85,13 @@ class Evaluator:
         and dies with a payload-size mismatch.)"""
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=1)
-        det_np = _to_numpy(detections)
-        tgt_np = {k: _to_numpy(v) for k, v in target.items()}
+        det_np = tgt_np = None
+        if detections is not None:
+            det_np = _to_numpy(detections)
+            tgt_np = {k: _to_numpy(v) for k, v in target.items()}
         det_np, tgt_np = self._maybe_merge(det_np, tgt_np)
+        if det_np is None:
+            return self._pool.submit(lambda: None)
 
         def run(det, tgt):
             self._tls.pre_merged = True   # pool-thread-local: the sync
@@ -133,6 +141,8 @@ class PascalEvaluator(Evaluator):
                  optional 'img_id': [B], optional 'difficult'/'group_of'
                  [B, M] bool}."""
         detections, target = self._maybe_merge(detections, target)
+        if detections is None:
+            return
         detections = _to_numpy(detections)
         bboxes = _to_numpy(target["bbox"])
         classes = _to_numpy(target["cls"])
@@ -225,6 +235,8 @@ class CocoEvaluator(Evaluator):
 
     def add_predictions(self, detections, target: Dict):
         detections, target = self._maybe_merge(detections, target)
+        if detections is None:
+            return
         detections = _to_numpy(detections)
         bboxes = _to_numpy(target["bbox"])
         classes = _to_numpy(target["cls"])

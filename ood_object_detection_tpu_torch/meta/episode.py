@@ -40,6 +40,7 @@ from ..ops.anchors import Anchors
 from ..ops.boxes import pairwise_iou_yxyx
 from ..ops.losses import detection_loss_nhwc
 from ..ops.post_process import _per_anchor_reduce, generate_detections
+from ..parallel.mesh import all_reduce_sum
 from ..train.train_state import _clip_by_global_norm
 from .clustering import cluster_pseudo_targets, projection_losses
 from .config import MetaConfig
@@ -496,10 +497,25 @@ class MetaTrainer:
             self.meta_cfg, self.model_cfg, self.qry_anchors(),
             ood_method=ood_method)
 
-    def train_meta_batch_sharded(self, episodes, mesh, axis: str = "episode"):
-        raise NotImplementedError(
-            "the episode-parallel meta step waits for the data-parallel "
-            "slice (ROADMAP Queue 1 item 12); use train_episode")
+    def train_meta_batch_sharded(self, episodes, mesh, axis: str = "episode",
+                                 phase_a: bool = False) -> Dict:
+        """One meta update from a meta batch computed in parallel over
+        ``mesh`` (``make_sharded_meta_step``): ``episodes`` are this
+        process's share, as many on every rank (``axis`` names the mesh's
+        axis, as in the JAX signature; a process-group mesh has one).
+        Resets the sequential accumulator (a partial one must not leak
+        into a later step) and returns the meta-batch means of the
+        metrics."""
+        if self._stale_mode:
+            raise NotImplementedError(
+                "ref_stale_proj_activs is a fidelity compat mode and is not "
+                "plumbed through the sharded meta-batch step; use "
+                "sequential accumulation (episode_mesh=0)")
+        self.accum = None
+        self._accum_count = 0
+        self._accum_phase = None
+        return make_sharded_meta_step(self, mesh, axis)(
+            stack_episodes(episodes), phase_a=phase_a)
 
     @torch.no_grad()
     def adapted_variables(self, supp_images: torch.Tensor
@@ -520,9 +536,49 @@ class MetaTrainer:
 
 
 def make_sharded_meta_step(trainer: MetaTrainer, mesh, axis: str = "episode"):
-    raise NotImplementedError(
-        "the episode-parallel meta step waits for the data-parallel slice "
-        "(ROADMAP Queue 1 item 12)")
+    """The episode-parallel meta step (JAX's ``shard_map`` step): each
+    process sums the meta-gradients and metrics of its share of the
+    episodes, one all-reduce sums them over the ranks, both are divided by
+    the total episode count, and every rank applies the same update: the
+    sequential accumulation's semantics (``train_episode``), with
+    meta_batch_size above the mesh size looping each rank's chunk. Each
+    episode normalises with its own batch statistics, as in
+    ``train_episode``: nothing synchronises inside an episode.
+
+    Returns ``step(stacked_batches, phase_a=False) -> mean metrics``, the
+    leading dim of ``stacked_batches`` (``stack_episodes``) this rank's
+    episodes; the meta parameters and the optimizer update in place. JAX's
+    step is phase B's; ``phase_a`` runs the projection phase the same
+    way."""
+    group = mesh.group if mesh is not None else None
+    size = mesh.size if mesh is not None else 1
+
+    def step(batches: Dict[str, torch.Tensor], phase_a: bool = False):
+        e_local = next(iter(batches.values())).shape[0]
+        grads = metrics = None
+        for i in range(e_local):
+            _, m, g = trainer.episode_grads(
+                {k: v[i] for k, v in batches.items()}, phase_a)
+            m = {k: v.detach().float() for k, v in m.items()}
+            grads = g if grads is None else \
+                [a + b for a, b in zip(grads, g)]
+            metrics = m if metrics is None else \
+                {k: metrics[k] + m[k] for k in m}
+        keys = list(metrics)
+        flat = torch.cat([g.detach().reshape(-1) for g in grads]
+                         + [torch.stack([metrics[k] for k in keys])])
+        if group is not None:
+            flat = all_reduce_sum(flat, group)
+        flat = flat / float(e_local * size)
+        mean, offset = {}, 0
+        for (tree, name, _), g in zip(_flat(trainer.meta_params), grads):
+            n = g.numel()
+            mean.setdefault(tree, {})[name] = flat[offset:offset + n].view(
+                g.shape)
+            offset += n
+        trainer.tx.step(mean)
+        return {k: flat[offset + i] for i, k in enumerate(keys)}
+    return step
 
 
 # Keys of an episode batch that are per-episode arrays (stackable to a

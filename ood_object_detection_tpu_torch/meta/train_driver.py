@@ -15,7 +15,18 @@ at a dataset for real runs). It runs on the CUDA card, and raises without
 one, unless ``--device cpu`` is given (the kernels' plain versions).
 ``--load-ckpt`` reads a variables file of the port
 (``train.checkpoint.save_variables``), not an orbax directory.
-``--episode-mesh`` above 1 raises (ROADMAP Queue 1 item 7).
+
+Episode parallelism: one process a card under torchrun (``python -m
+torch.distributed.run --nproc-per-node N -m
+ood_object_detection_tpu_torch.meta.train_driver --episode-mesh N ...``).
+``--episode-mesh`` must divide ``--meta-batch-size``; each rank builds
+its own episode stream (seed ``seed * N + rank``), buffers its
+meta_batch_size / N training episodes and takes the meta step of
+``MetaTrainer.train_meta_batch_sharded`` (one all-reduce, the same update
+on every rank), in phase A as in phase B. Each rank validates on its own
+episodes and the val loss is averaged over the ranks before the
+best-checkpoint decision; rank 0 writes the checkpoints. Each rank runs
+on ``cuda:LOCAL_RANK`` unless ``--device`` names a device.
 """
 from __future__ import annotations
 
@@ -152,8 +163,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(0 = synchronous; the reference's preloader "
                         "worker analog, preloader.py:153-278)")
     p.add_argument("--episode-mesh", type=int, default=0,
-                   help="devices for the SPMD meta-batch step (not ported "
-                        "yet above 1: ROADMAP Queue 1 item 7)")
+                   help="processes of the episode-parallel meta step (the "
+                        "torchrun launch's; 0 or 1: sequential "
+                        "accumulation in one process)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl on the card, "
+                        "gloo on the CPU; gloo lets ranks share one card)")
     p.add_argument("--fpn-repeats", type=int, default=None,
                    help="override fpn_cell_repeats (small-scale debugging)")
     p.add_argument("--head-repeats", type=int, default=None,
@@ -188,23 +203,30 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     ``key(1)``), carried across by ``utils.from_jax``. Returns the
     ``MetaTrainer`` at the end of the run."""
     args = build_argparser().parse_args(argv)
-    if args.episode_mesh > 1:
-        raise NotImplementedError(
-            f"--episode-mesh {args.episode_mesh}: the episode-parallel meta "
-            "step is not ported yet (ROADMAP Queue 1 item 7, data "
-            "parallelism)")
+    if args.episode_mesh > 1 and args.meta_batch_size % args.episode_mesh:
+        raise SystemExit("--episode-mesh must divide --meta-batch-size")
+    from ..parallel import create_mesh
+    mesh = create_mesh((max(args.episode_mesh, 1),), ("episode",),
+                       device=args.device, backend=args.dist_backend)
+    try:
+        return _run(args, mesh, init_variables)
+    finally:
+        mesh.close()
 
+
+def _run(args, mesh, init_variables):
     import torch
 
     from ..config import get_efficientdet_config
     from ..data.episodic import (EpisodePrefetcher, EpisodicDataset,
                                  SyntheticEpisodeSource)
     from ..evaluation import OodEvaluator, PascalEvaluator
-    from ..factory import create_model_from_config, resolve_device
+    from ..factory import create_model_from_config
+    from ..parallel import process_merge
     from ..train.checkpoint import CheckpointManager
     from . import MetaConfig, MetaTrainer, ProjectionNet
 
-    device = resolve_device(args.device)
+    device = mesh.device
     meta_cfg = MetaConfig(
         n_way=args.n_way, num_sup=args.num_sup, num_qry=args.num_qry,
         num_zero_images=args.num_zero_images,
@@ -290,13 +312,13 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     dataset = EpisodicDataset(
         support, src, model_cfg, meta_cfg,
         train_cats=train_cats, val_cats=val_cats, val_freq=args.val_freq,
-        device=device)
+        device=device, process_index=mesh.rank, process_count=mesh.size)
 
     trainer = MetaTrainer(
         model, proj_net, meta_cfg, model_cfg,
         dataset.builder.proj_level_sizes, lr_lr=args.lr_lr, device=device)
 
-    ckpt = CheckpointManager(args.checkpoint_dir, keep=3)
+    ckpt = CheckpointManager(args.checkpoint_dir, keep=3, mesh=mesh)
     evaluator = PascalEvaluator(num_classes=1) if args.eval_map else None
     det_ood_ev = gt_ood_ev = None
     if args.eval_ood:
@@ -325,6 +347,7 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     best_is_proj = True   # best_val tracks proj_loss until the phase flips
     t0 = time.time()
     it = 0
+    episode_buf, buf_phase = [], None
     episodes = (EpisodePrefetcher(dataset, depth=args.prefetch_episodes)
                 if args.prefetch_episodes > 0 else dataset)
     for episode in episodes:
@@ -367,11 +390,30 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
                 score_ood_episode(episode, is_known=False)
                 score_ood_episode(dataset.known_eval_episode(),
                                   is_known=True)
+            # each rank ran its own val episode: average the loss so every
+            # rank makes the same best-checkpoint decision
+            vl = float(np.mean(process_merge(np.float64(vl), mesh)))
             val_acc["val_loss"] += vl
             val_count += 1
             if vl < best_val:
                 best_val = vl
                 ckpt.save(it, trainer.meta_params, metrics={"val_loss": vl})
+        elif mesh.distributed:
+            # episode-parallel meta batch: this rank's share of
+            # meta_batch_size episodes, one all-reduce, one update; a
+            # phase boundary drops a partial share, as train_episode does
+            if buf_phase is not None and buf_phase != phase_a:
+                episode_buf.clear()
+            buf_phase = phase_a
+            episode_buf.append(episode)
+            if len(episode_buf) * mesh.size >= meta_cfg.meta_batch_size:
+                metrics = trainer.train_meta_batch_sharded(
+                    episode_buf, mesh, phase_a=phase_a)
+                # meta-batch means standing for this rank's episodes:
+                # scaled so acc / log_freq stays a per-episode average
+                for k, v in metrics.items():
+                    acc[k] += float(v) * len(episode_buf)
+                episode_buf.clear()
         else:
             metrics = trainer.train_episode(episode, phase_a)
             for k, v in metrics.items():

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..config.model_config import ModelConfig
+from ..parallel.mesh import all_reduce_sum
 from .layers import (Conv2d, ConvBnAct, SeparableConv, get_act,
                      recomputing, update_running_stats)
 
@@ -42,6 +43,11 @@ class HeadBatchNorm(nn.Module):
     ``write_stats`` is False or the forward is ``layers.remat``'s
     recompute; ``force_batch_stats`` in eval mode writes
     nothing, as the JAX head does outside a mutable apply.
+
+    With a ``sync_group`` (``parallel.synced_batch_norms``) train mode
+    takes the global batch's moments in the same two passes: [sum x,
+    count] summed over the group's ranks, then the summed squared
+    deviations, each a differentiable all-reduce.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -50,6 +56,7 @@ class HeadBatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.write_stats = True
+        self.sync_group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -60,9 +67,20 @@ class HeadBatchNorm(nn.Module):
         dt = x.dtype
         if self.training or force_batch_stats:
             x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            centred = x32 - mean.view(1, -1, 1, 1)
-            var = (centred * centred).mean(dim=(0, 2, 3))
+            group = self.sync_group if self.training else None
+            if group is None:
+                mean = x32.mean(dim=(0, 2, 3))
+                centred = x32 - mean.view(1, -1, 1, 1)
+                var = (centred * centred).mean(dim=(0, 2, 3))
+            else:
+                c = x32.shape[1]
+                sums = all_reduce_sum(torch.cat([
+                    x32.sum(dim=(0, 2, 3)),
+                    x32.new_full((1,), x32.numel() // c)]), group)
+                mean = sums[:c] / sums[c]
+                centred = x32 - mean.view(1, -1, 1, 1)
+                var = all_reduce_sum((centred * centred).sum(dim=(0, 2, 3)),
+                                     group) / sums[c]
             if self.training and self.write_stats and not recomputing():
                 update_running_stats(self, mean, var, 1 - self.momentum)
         else:

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import all_reduce_sum
+
 _ACTS: Dict[str, Callable] = {
     "swish": F.silu,
     "silu": F.silu,
@@ -140,21 +142,35 @@ class BatchNorm2d(nn.BatchNorm2d):
     is ``remat``'s recompute.
     ``F.batch_norm(training=True)`` is not used: it updates the running
     variance with the unbiased variance (N / (N - 1) larger).
+
+    With a ``sync_group`` (``parallel.synced_batch_norms``) the moments are
+    the global batch's: [sum x, sum x^2, count] summed over the group's
+    ranks in one differentiable all-reduce, so the running statistics are
+    equal on every rank. ``nn.SyncBatchNorm`` is not used: it combines
+    Welford statistics and keeps the unbiased running variance.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
                  momentum: float = 0.01):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.write_stats = True
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        if self.sync_group is None:
+            mean = x32.mean(dim=(0, 2, 3))
+            sq = (x32 * x32).mean(dim=(0, 2, 3))
+        else:
+            c = x32.shape[1]
+            sums = all_reduce_sum(torch.cat([
+                x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+                x32.new_full((1,), x32.numel() // c)]), self.sync_group)
+            mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(sq - mean * mean, min=0.0)
         if self.write_stats and not recomputing():
             update_running_stats(self, mean, var, 1.0 - self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight

@@ -14,6 +14,12 @@ save at a step not above the latest saved one is skipped. Files are read
 with ``torch.load(weights_only=True)``; the learning-rate schedules,
 being functions, are not saved, and a restore keeps the optimizer's own.
 The port reads no orbax directory.
+
+In a data-parallel run (a ``mesh`` of more than one process) every rank
+calls ``save`` with the same state: rank 0 writes and decides, its answer
+is broadcast, and no rank returns before the file is in place. A
+restore reads the same file on every rank. (JAX's orbax save is itself a
+collective, so there too every rank must make the same decision.)
 """
 from __future__ import annotations
 
@@ -103,11 +109,13 @@ def _write(path: str, payload: Any) -> None:
 
 class CheckpointManager:
     """save(step, state), restore(state_like) -> state, in ``directory``,
-    keeping the newest ``keep`` steps."""
+    keeping the newest ``keep`` steps; with a ``mesh`` of more than one
+    process, rank 0 writes (see the module's docstring)."""
 
-    def __init__(self, directory: str, keep: int = 5):
+    def __init__(self, directory: str, keep: int = 5, mesh=None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -128,6 +136,15 @@ class CheckpointManager:
         """Write ``state`` (a ``TrainState``, a module, or nested dicts of
         tensors) as step ``step`` with its ``metrics``; False, and nothing
         written, when a step at or above ``step`` is saved already."""
+        if self.mesh is None:
+            return self._save(step, state, metrics)
+        from ..parallel.mesh import process_gather
+        wrote = self._save(step, state, metrics) if self.mesh.rank == 0 \
+            else None
+        return bool(process_gather(wrote, self.mesh)[0])
+
+    def _save(self, step: int, state: Any,
+              metrics: Optional[Dict[str, float]]) -> bool:
         latest = self.latest_step()
         if latest is not None and latest >= step:
             return False

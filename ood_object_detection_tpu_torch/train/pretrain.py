@@ -16,11 +16,23 @@ Run: python -m ood_object_detection_tpu_torch.train.pretrain --help
 
 It runs on the CUDA card, and raises without one, unless ``--device cpu``
 is given (the kernels' plain versions). Every flag of the JAX CLI is
-accepted; ``--mesh`` above 1 reaches code the port does not have yet and
-raises, naming its ROADMAP Queue 1 item (7). ``--dropout`` (the
-backbone's stochastic depth), ``--remat`` (the first N backbone stages
-recomputed in the backward) and ``--remat-fpn-heads`` go into the model
-config as the JAX CLI puts them.
+accepted. ``--dropout`` (the backbone's stochastic depth), ``--remat``
+(the first N backbone stages recomputed in the backward) and
+``--remat-fpn-heads`` go into the model config as the JAX CLI puts them.
+
+Data parallelism: one process a card, started by torchrun, e.g.
+``python -m torch.distributed.run --nproc-per-node 4 -m
+ood_object_detection_tpu_torch.train.pretrain --mesh 4 ...``. ``--mesh``
+is the number of processes (-1: all of the launch); ``--batch-size`` is
+each process's, as in the JAX multi-host loaders. Each rank reads its
+stride of the samples, labels and trains on its rows (the global
+BatchNorm moments, positives and summed gradients:
+``train_state.data_parallel_train_step``), evaluates its val rows, and
+the val loss and detections are merged so that every rank logs and
+decides alike; rank 0 writes the checkpoints. Each rank runs on
+``cuda:LOCAL_RANK`` unless ``--device`` names a device (``--device cuda:0
+--dist-backend gloo`` puts two ranks on one card). With ``--log-file``,
+rank r > 0 writes to ``<log-file>.rank<r>``.
 """
 from __future__ import annotations
 
@@ -91,8 +103,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="run the PASCAL evaluator on val batches")
     p.add_argument("--per-cat-dir", default="per_cat_metrics")
     p.add_argument("--mesh", type=int, default=-1,
-                   help="#devices on the data axis (-1 = all); the port "
-                        "trains on one (more: ROADMAP Queue 1 item 7)")
+                   help="processes on the data axis (-1 = all of the "
+                        "torchrun launch; one process outside torchrun)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl on the card, "
+                        "gloo on the CPU; gloo lets ranks share one card)")
     p.add_argument("--freeze-bn", choices=("none", "backbone", "all"),
                    default="backbone",
                    help="BN eval-mode scope. The reference DEFAULTS to "
@@ -134,20 +149,7 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, device) -> None:
-    """Raise for a flag that reaches code the port does not have yet."""
-    import torch
-    mesh = args.mesh
-    if mesh == -1:
-        mesh = torch.cuda.device_count() if device.type == "cuda" else 1
-    if mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} ({mesh} devices): data-parallel training is "
-            "not ported yet (ROADMAP Queue 1 item 7, data parallelism); use "
-            "--mesh 1")
-
-
-def make_loaders(args, model_cfg, device):
+def make_loaders(args, model_cfg, device, mesh=None):
     from ..data.dataset import (DetectionDataset, PrefetchLoader,
                                 SyntheticDetectionDataset)
     from ..data.input_config import resolve_input_config
@@ -184,18 +186,22 @@ def make_loaders(args, model_cfg, device):
             args.data_dir, parser,
             transforms_coco_eval(size, interpolation=icfg["interpolation"],
                                  fill_color=icfg["fill_color"]))
+    # data parallelism: each process its stride of the samples
+    split = dict(process_index=mesh.rank, process_count=mesh.size) \
+        if mesh is not None else {}
     train = PrefetchLoader(train_ds, args.batch_size, shuffle=True,
                            workers=args.workers, device=device,
                            mean=icfg["mean"], std=icfg["std"],
-                           re_prob=args.re_prob)
+                           re_prob=args.re_prob, **split)
     # drop_last=False: the val metrics cover the whole split
     val = PrefetchLoader(val_ds, args.batch_size, shuffle=False,
                          workers=args.workers, device=device,
-                         drop_last=False, mean=icfg["mean"], std=icfg["std"])
+                         drop_last=False, mean=icfg["mean"], std=icfg["std"],
+                         **split)
     return train, val
 
 
-def make_stream(args, model_cfg):
+def make_stream(args, model_cfg, mesh=None):
     """Category-balanced episode stream with interleaved val blocks
     (reference PretrainDataset, preloader.py:28-150)."""
     from ..data.episodic import SyntheticEpisodeSource
@@ -221,7 +227,9 @@ def make_stream(args, model_cfg):
     return PretrainEpisodeStream(
         src, size, train_cats, val_cats, num_qry=args.batch_size,
         val_freq=args.val_freq, num_val_batches=args.val_steps,
-        random_trans=args.random_trans)
+        random_trans=args.random_trans,
+        process_index=mesh.rank if mesh is not None else 0,
+        process_count=mesh.size if mesh is not None else 1)
 
 
 def main(argv=None, *, init_variables: Optional[Any] = None):
@@ -231,16 +239,26 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     draws its weights from ``jax.random.key(0)``; this lets a port run
     start from the same numbers). Returns the final ``TrainState``."""
     args = build_argparser().parse_args(argv)
+    from ..parallel import create_mesh
+    mesh = create_mesh((args.mesh,), ("data",), device=args.device,
+                       backend=args.dist_backend)
+    try:
+        return _run(args, mesh, init_variables)
+    finally:
+        mesh.close()
 
+
+def _run(args, mesh, init_variables):
     import torch
     from torch.func import functional_call
 
     from ..config import get_efficientdet_config
     from ..config.train_config import TrainConfig
     from ..data.device_preproc import normalize_uint8
-    from ..factory import create_model_from_config, resolve_device
+    from ..factory import create_model_from_config
     from ..ops.anchors import Anchors
     from ..ops.post_process import generate_detections
+    from ..parallel import process_merge
     from ..utils.profiling import (MetricLogger, annotate, start_trace,
                                    stop_trace)
     from .checkpoint import CheckpointManager
@@ -248,8 +266,7 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
                               linear_schedule, make_grouped_optimizer,
                               make_train_step)
 
-    device = resolve_device(args.device)
-    refuse_unported(args, device)
+    device = mesh.device
     model_cfg = get_efficientdet_config(
         args.model, num_classes=args.num_classes,
         alpha=args.alpha, gamma=args.gamma, box_loss_weight=args.bbox_coeff)
@@ -276,7 +293,8 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
         remat_cls_loss=args.remat_cls_loss)
     model = create_model_from_config(model_cfg, seed=0, device=device)
     anchors = Anchors.from_config(model_cfg)
-    print(f"device: {device}", flush=True)
+    print(f"device: {device}; mesh: {mesh.size} process(es), rank "
+          f"{mesh.rank}", flush=True)
 
     schedule = linear_schedule(1e-4, args.lr, args.warmup_steps)
     tx = None
@@ -308,7 +326,7 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     if init_variables is not None:
         from ..utils.from_jax import load_jax_train_state
         load_jax_train_state(state, init_variables)
-    step_fn = make_train_step(model, tx, anchors, tcfg,
+    step_fn = make_train_step(model, tx, anchors, tcfg, mesh=mesh,
                               freeze_bn=args.freeze_bn)
     anchor_boxes = torch.from_numpy(anchors.boxes).to(device)
 
@@ -329,7 +347,7 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
             soft_nms=model_cfg.soft_nms, topk_method=model_cfg.topk_method)
         return dets
 
-    ckpt = CheckpointManager(args.checkpoint_dir, keep=3)
+    ckpt = CheckpointManager(args.checkpoint_dir, keep=3, mesh=mesh)
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
@@ -339,14 +357,19 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     evaluator = None
     if args.eval_map:
         from ..evaluation import create_evaluator, default_evaluator_name
+        # each rank evaluates its val rows; the evaluator gathers every
+        # rank's before adding them (reference evaluator.py:36-39)
         evaluator = create_evaluator(
             args.evaluator or default_evaluator_name(args.dataset),
-            model_cfg.num_classes)
+            model_cfg.num_classes, distributed=mesh.size > 1)
     os.makedirs(args.per_cat_dir, exist_ok=True)
 
+    log_file = args.log_file
+    if log_file and mesh.rank > 0:
+        log_file = f"{log_file}.rank{mesh.rank}"
     logger = MetricLogger(use_wandb=args.wandb, project="ood-detection-tpu",
                           run_name=args.exp, config=vars(args),
-                          out_file=args.log_file or None)
+                          out_file=log_file or None)
 
     metrics_acc = defaultdict(float)
     best_val = float("inf")
@@ -356,7 +379,8 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     def eval_batch(vbatch):
         """One val batch -> loss; detections feed the evaluator thread."""
         model_batch = {k: vbatch[k] for k in ("image", "bbox", "cls")}
-        vm = detection_eval_step(model, anchor_boxes, state, model_batch)
+        vm = detection_eval_step(model, anchor_boxes, state, model_batch,
+                                 mesh=mesh)
         if evaluator is not None:
             target = {k: vbatch[k]
                       for k in ("bbox", "cls", "img_id", "difficult",
@@ -367,19 +391,26 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
 
     def finish_val(val_losses):
         nonlocal best_val
-        val_loss = float(np.mean(val_losses)) if val_losses else float("inf")
+        # every rank saw its own val rows: the count-weighted merge gives
+        # every rank the same val loss, so the best-checkpoint decision
+        # is the same everywhere
+        sums = process_merge(np.array([np.sum(val_losses), len(val_losses)],
+                                      np.float64), mesh)
+        tot, cnt = sums.reshape(-1, 2).sum(axis=0)
+        val_loss = float(tot / cnt) if cnt else float("inf")
         val_log = {"step": step, "val_loss": round(val_loss, 5)}
         if evaluator is not None:
             evaluator.drain()
             res = evaluator.evaluate()
             val_log["val_mAP"] = round(float(res["mAP@0.5IOU"]), 5)
             val_log["val_CorLoc"] = round(float(res["meanCorLoc@0.5IOU"]), 5)
-            np.save(os.path.join(
-                args.per_cat_dir, f"{args.exp}_ap_{step}.npy"),
-                res["per_class_ap"])
-            np.save(os.path.join(
-                args.per_cat_dir, f"{args.exp}_corloc_{step}.npy"),
-                res["per_class_corloc"])
+            if mesh.rank == 0:      # every rank holds the same merged result
+                np.save(os.path.join(
+                    args.per_cat_dir, f"{args.exp}_ap_{step}.npy"),
+                    res["per_class_ap"])
+                np.save(os.path.join(
+                    args.per_cat_dir, f"{args.exp}_corloc_{step}.npy"),
+                    res["per_class_corloc"])
             evaluator.reset()
         logger.log(val_log)
         if val_loss < best_val:
@@ -414,7 +445,7 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
     if args.stream:
         # interleaved-val episode stream (reference PretrainDataset,
         # preloader.py:62-92): val blocks arrive inline as val_iter batches
-        stream = make_stream(args, model_cfg)
+        stream = make_stream(args, model_cfg, mesh)
         val_losses: list = []
         in_val = False
         for batch in stream:
@@ -439,7 +470,8 @@ def main(argv=None, *, init_variables: Optional[Any] = None):
             # and the evaluator's queued predictions
             finish_val(val_losses)
     else:
-        train_loader, val_loader = make_loaders(args, model_cfg, device)
+        train_loader, val_loader = make_loaders(args, model_cfg, device,
+                                                mesh)
         train_iter = iter(train_loader)
         while step < args.steps:
             try:

@@ -26,8 +26,17 @@ seeded from (``DROP_PATH_SEED``, step): the JAX step's
 ``fold_in(key(0x0D10), step)``, a different block subset every step and
 the same one again under resume. The masks cannot be bit-equal to JAX's.
 
-Data parallelism (a ``mesh``) and the image-H sharded leg are later
-slices: ``make_train_step(mesh=...)`` raises.
+Data parallelism (``make_train_step(mesh=...)`` with a launched
+``parallel.create_mesh``): each process labels its own rows (K3 / K4 on
+its card) and the step computes what the one-process step computes on
+the global batch, rank r's rows the r-th block, as the JAX mesh step
+does. The train-mode BatchNorm moments are the global batch's
+(``parallel.synced_batch_norms``); the positives are summed over the
+ranks before the loss, so each rank's loss is its share of the global
+loss; the gradients are summed (one all-reduce of a flat buffer), then
+clipped by their global norm, and every rank steps the optimizer and the
+EMA alike. The image-H sharded leg is not ported (``create_mesh`` raises
+for a 2-D mesh).
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ from ..models.efficientdet import EfficientDet
 from ..ops.anchors import Anchors
 from ..ops.losses import detection_loss_nhwc
 from ..ops.target_assigner import LabelResult, batch_label_anchors
+from ..parallel.mesh import Mesh, all_reduce_sum, synced_batch_norms
+from ..utils.profiling import annotate
 
 LrSchedule = Union[float, Callable[[int], float]]
 PARAM_GROUPS = ("backbone", "fpn", "heads")
@@ -303,19 +314,77 @@ def detection_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
     return state, metrics
 
 
+def sum_gradients(params, mesh: Mesh) -> None:
+    """Each parameter's ``.grad`` summed over the mesh's ranks in place
+    (one all-reduce of a flat buffer); a missing gradient counts as
+    zero, as ``apply_gradients`` takes it."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                          mesh.group)
+    offset = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        g.copy_(flat[offset:offset + n].view(g.shape))
+        p.grad = g
+        offset += n
+
+
+def data_parallel_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
+                             anchor_boxes: torch.Tensor,
+                             train_config: TrainConfig, mesh: Mesh,
+                             state: TrainState,
+                             batch: Dict[str, torch.Tensor],
+                             freeze_bn: str = "none"
+                             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """``detection_train_step`` on this rank's rows of the global batch:
+    the same update on every rank, the global metrics."""
+    labels = batch_label_anchors(anchor_boxes, batch["bbox"], batch["cls"])
+    positives = all_reduce_sum(torch.sum(labels.num_positives).float()
+                               .reshape(1), mesh.group)
+    labels = dataclasses.replace(labels, num_positives=positives)
+    model.train_bn(freeze_bn)
+    image = batch["image"]
+    with synced_batch_norms(model, mesh):
+        cls_out, box_out = model(image, drop_path_generator(
+            model, state.step, image.device))
+        total, cls_loss, box_loss = detection_loss(
+            model.config, cls_out, box_out, labels,
+            remat_cls=train_config.remat_cls_loss)
+        tx.zero_grad()
+        total.backward()
+    with annotate("grad_all_reduce"):
+        sum_gradients(list(model.parameters()), mesh)
+    grad_norm = apply_gradients(state, tx, train_config)
+    losses = all_reduce_sum(torch.stack([total, cls_loss, box_loss])
+                            .detach(), mesh.group)
+    metrics = {
+        "loss": losses[0],
+        "class_loss": losses[1],
+        "box_loss": losses[2],
+        "num_positives": positives[0],
+        "grad_norm": grad_norm,
+    }
+    return state, metrics
+
+
 def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
-                    anchors: Anchors, train_config: TrainConfig, mesh=None,
-                    freeze_bn: str = "none"):
+                    anchors: Anchors, train_config: TrainConfig,
+                    mesh: Optional[Mesh] = None, freeze_bn: str = "none"):
     """The train step as ``step(state, batch) -> (state, metrics)`` on the
-    model's device. ``mesh`` (data parallelism) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh=) is not "
-                                  "ported yet")
+    model's device. With a ``mesh`` of a launched group
+    (``parallel.create_mesh`` under torchrun) ``batch`` is this rank's
+    rows and the step is ``data_parallel_train_step``; a mesh of one
+    process outside torchrun is the one-process step."""
     model = unwrap_bench(model)
     device = next(model.parameters()).device
     anchor_boxes = torch.from_numpy(anchors.boxes).to(device)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if mesh is not None and mesh.distributed:
+            return data_parallel_train_step(
+                model, tx, anchor_boxes, train_config, mesh, state, batch,
+                freeze_bn=freeze_bn)
         return detection_train_step(model, tx, anchor_boxes, train_config,
                                     state, batch, freeze_bn=freeze_bn)
     return step
@@ -324,11 +393,18 @@ def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
 @torch.no_grad()
 def detection_eval_step(model: nn.Module, anchor_boxes: torch.Tensor,
                         state: TrainState, batch: Dict[str, torch.Tensor],
-                        use_ema: bool = True) -> Dict[str, torch.Tensor]:
+                        use_ema: bool = True, mesh: Optional[Mesh] = None
+                        ) -> Dict[str, torch.Tensor]:
     """Loss only, with running BatchNorm statistics and the EMA parameters
-    (``use_ema``, when there are some): the validation loss."""
+    (``use_ema``, when there are some): the validation loss. With a
+    launched ``mesh``, ``batch`` is this rank's rows and the losses are
+    the global batch's (positives and losses summed over the ranks), as
+    the JAX eval step over the mesh gives them."""
     model = unwrap_bench(model)
     labels = batch_label_anchors(anchor_boxes, batch["bbox"], batch["cls"])
+    if mesh is not None and mesh.distributed:
+        labels = dataclasses.replace(labels, num_positives=all_reduce_sum(
+            torch.sum(labels.num_positives).float().reshape(1), mesh.group))
     was_training = model.training
     model.eval()
     try:
@@ -338,4 +414,7 @@ def detection_eval_step(model: nn.Module, anchor_boxes: torch.Tensor,
         model.train(was_training)
     total, cls_loss, box_loss = detection_loss(model.config, cls_out,
                                                box_out, labels)
+    if mesh is not None and mesh.distributed:
+        total, cls_loss, box_loss = all_reduce_sum(
+            torch.stack([total, cls_loss, box_loss]), mesh.group)
     return {"loss": total, "class_loss": cls_loss, "box_loss": box_loss}

@@ -20,6 +20,17 @@ EMA weights); with none the seeded random model is evaluated. ``--data
 synthetic`` needs no files. ``--compute-dtype bfloat16`` runs the model in
 bf16, the path of the hand-written K2; the default is the model config's
 (float32), as in the JAX CLI.
+
+Data parallelism: one process a card under torchrun (``python -m
+torch.distributed.run --nproc-per-node N -m
+ood_object_detection_tpu_torch.validate --mesh N ...``; ``--mesh 0`` is
+every process of the launch). ``--batch-size`` is each process's: every
+global batch of ``N x batch`` images is split in rank order, each rank
+predicts its rows on its own card (``DetBenchPredict.sharded``: K2 -> K1,
+no collective), and the evaluator gathers every rank's rows, so every
+rank computes the metrics of the whole split; rank 0 prints them. As in
+the JAX CLI, a final partial batch that does not divide over the ranks
+runs unsharded (on rank 0) rather than being dropped.
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ import argparse
 import json
 import time
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 
 def build_argparser():
@@ -67,8 +80,11 @@ def build_argparser():
     p.add_argument("--std", type=float, nargs="+", default=None)
     p.add_argument("--fill-color", default=None)
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel devices: 0 or 1 (one device); more "
-                        "is not ported yet")
+                   help="data-parallel processes (0 = every process of the "
+                        "torchrun launch; one outside torchrun)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl on the card, "
+                        "gloo on the CPU; gloo lets ranks share one card)")
     p.add_argument("--out", default="", help="write the metrics JSON here")
     p.add_argument("--device", default=None,
                    help="the CUDA card when not given; 'cpu' runs the "
@@ -79,7 +95,25 @@ def build_argparser():
     return p
 
 
-def make_val_loader(args, model_cfg, device):
+def rank_batches(n: int, batch: int, size: int, rank: int):
+    """The sample indices of rank ``rank`` in each global batch of ``batch
+    x size`` of ``n`` samples, in order: the r-th block of each (the JAX
+    mesh's placement). A final partial batch is split evenly when it
+    divides over the ranks; otherwise rank 0 takes it whole and the others
+    none, JAX's rule of running such a batch unsharded."""
+    out, step = [], batch * size
+    for start in range(0, n, step):
+        rows = min(step, n - start)
+        if rows % size == 0:
+            per = rows // size
+            out.append(np.arange(start + rank * per, start + (rank + 1) * per))
+        else:
+            out.append(np.arange(start, start + rows) if rank == 0
+                       else np.arange(0))
+    return out
+
+
+def make_val_loader(args, model_cfg, device, mesh=None):
     from .data.dataset import (DetectionDataset, PrefetchLoader,
                                SyntheticDetectionDataset)
     from .data.input_config import resolve_input_config
@@ -106,18 +140,41 @@ def make_val_loader(args, model_cfg, device):
                                  fill_color=icfg["fill_color"]))
     # drop_last=False: evaluation covers the whole split, the final
     # partial batch included
-    return PrefetchLoader(ds, args.batch_size, shuffle=False,
+    if mesh is None or mesh.size == 1:
+        return PrefetchLoader(ds, args.batch_size, shuffle=False,
+                              workers=args.workers, drop_last=False,
+                              mean=icfg["mean"], std=icfg["std"],
+                              device=device)
+
+    class RankRowsLoader(PrefetchLoader):
+        """This rank's rows of every global batch (``rank_batches``); an
+        empty share comes as an empty dict."""
+
+        def _batches(self, epoch):
+            return rank_batches(len(self.dataset), self.batch_size,
+                                self.process_count, self.process_index)
+
+        def __len__(self):
+            return -(-len(self.dataset)
+                     // (self.batch_size * self.process_count))
+
+    return RankRowsLoader(ds, args.batch_size, shuffle=False,
                           workers=args.workers, drop_last=False,
-                          mean=icfg["mean"], std=icfg["std"], device=device)
+                          mean=icfg["mean"], std=icfg["std"], device=device,
+                          process_index=mesh.rank, process_count=mesh.size)
 
 
 TARGET_KEYS = ("bbox", "cls", "img_id", "difficult", "group_of")
 
 
 def run_validation(bench, loader, evaluator, ood_method: Optional[str] = None,
-                   max_batches: int = 0) -> Tuple[Dict, Dict]:
-    """Predict every batch of ``loader`` with ``bench`` (a DetBenchPredict)
-    and feed the evaluator's thread; then drain it and evaluate.
+                   max_batches: int = 0, mesh=None) -> Tuple[Dict, Dict]:
+    """Predict every batch of ``loader`` with ``bench`` (a DetBenchPredict,
+    or its ``sharded`` step) and feed the evaluator's thread; then drain it
+    and evaluate. With a ``mesh`` of more than one process the loader
+    gives this rank's rows (an empty dict for an empty share), the
+    evaluator gathers every rank's, and 'images' and the OOD statistics
+    are the whole split's.
 
     Returns (metrics: the evaluator's scalar metrics rounded to 5 places,
     'images', 'img_per_sec' and, with ``ood_method``, 'ood_mean' /
@@ -125,8 +182,6 @@ def run_validation(bench, loader, evaluator, ood_method: Optional[str] = None,
     the loader ('load_s'), predicting up to the detections' arrival on the
     host ('predict_s') and evaluating ('evaluate_s': handing batches to
     the evaluator, draining it and computing the metrics), and 'batches')."""
-    import numpy as np
-
     n_images = n_batches = 0
     ood_acc = []
     times = dict(load_s=0.0, predict_s=0.0, evaluate_s=0.0)
@@ -138,6 +193,10 @@ def run_validation(bench, loader, evaluator, ood_method: Optional[str] = None,
         times["load_s"] += time.perf_counter() - t
         if batch is None:
             break
+        if not batch:            # this rank's empty share of the batch
+            evaluator.add_predictions_async(None, None)
+            n_batches += 1
+            continue
         t = time.perf_counter()
         out = bench(batch["image"])
         dets, ood = out if ood_method else (out, None)
@@ -161,6 +220,11 @@ def run_validation(bench, loader, evaluator, ood_method: Optional[str] = None,
     times["evaluate_s"] += time.perf_counter() - t
     times["batches"] = n_batches
 
+    if mesh is not None and mesh.size > 1:
+        from .parallel import process_gather
+        parts = process_gather((n_images, ood_acc), mesh)
+        n_images = sum(n for n, _ in parts)
+        ood_acc = [a for _, acc in parts for a in acc]
     metrics = {k: round(float(v), 5) for k, v in res.items()
                if np.ndim(v) == 0}
     metrics["images"] = n_images
@@ -174,11 +238,16 @@ def run_validation(bench, loader, evaluator, ood_method: Optional[str] = None,
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: data-parallel evaluation is not ported "
-            "yet (ROADMAP Queue 1 item 7, data parallelism); use --mesh 1")
+    from .parallel import create_mesh
+    mesh = create_mesh((args.mesh or -1,), ("data",), device=args.device,
+                       backend=args.dist_backend)
+    try:
+        return _run(args, mesh)
+    finally:
+        mesh.close()
 
+
+def _run(args, mesh):
     import torch
 
     from .evaluation import create_evaluator, default_evaluator_name
@@ -192,17 +261,20 @@ def main(argv=None):
     bench = create_model(
         args.model, bench_task="predict", num_classes=args.num_classes,
         checkpoint_path=args.checkpoint, checkpoint_ema=args.checkpoint_ema,
-        ood_method=args.ood_method or None, device=args.device,
+        ood_method=args.ood_method or None, device=mesh.device,
         topk_method=args.topk_method, topk_recall=args.topk_recall,
         **overrides)
-    device = next(bench.parameters()).device
-    loader = make_val_loader(args, bench.config, device)
+    loader = make_val_loader(args, bench.config, mesh.device, mesh)
     evaluator = create_evaluator(
         args.evaluator or default_evaluator_name(args.dataset),
-        bench.config.num_classes)
+        bench.config.num_classes, distributed=mesh.size > 1)
+    predict = bench.sharded(mesh) if mesh.size > 1 else bench
     with torch.no_grad():
-        metrics, _ = run_validation(bench, loader, evaluator,
-                                    args.ood_method or None, args.max_batches)
+        metrics, _ = run_validation(predict, loader, evaluator,
+                                    args.ood_method or None, args.max_batches,
+                                    mesh=mesh)
+    if mesh.rank:
+        return metrics
     line = json.dumps(metrics)
     print(line)
     if args.out:

@@ -355,3 +355,43 @@ def test_remat_pair_drive_runs_on_the_cpu(tmp_path):
     assert plain.metrics[0]["loss"] == remat.metrics[0]["loss"]
     assert plain.stats.keys() == remat.stats.keys() and plain.stats
     assert all(set(run[3].values()) == {0} for run in runs.values())
+
+
+def test_data_parallel_drives_run_on_the_cpu(tmp_path):
+    """Phase 14's drives (a), (c) and (d) on the CPU with two gloo ranks
+    at 128 px (a one-cell, one-repeat D0), each launched by torchrun as on
+    the card, with every check of the phase that does not need the card:
+    (a) step 1 of 2 ranks x 2 images against one process x 4 and the
+    pretrain CLI's merged val losses, saved_best and rank-0 checkpoint
+    writes; (c) validate --mesh 2 over a 5-image fixture (the last image
+    run by rank 0 alone) against one process, the ground truth at AP 1.0
+    through the merged evaluators; (d) the meta driver with
+    --episode-mesh 2 equal on both ranks, and the sharded meta step
+    against sequential accumulation."""
+    tmp = str(tmp_path)
+    tiny = {"fpn_cell_repeats": 1, "box_class_repeats": 1}
+    flags = ["--fpn-repeats", "1", "--head-repeats", "1"]
+    with torch.enable_grad():
+        ranks = chip_smoke.dp_pretrain_path(
+            tmp, device="cpu", img=128, classes=4, batch=2, overrides=tiny,
+            steps=2, val_freq=1, cli_extra=flags + [
+                "--image-size", "128", "--workers", "1",
+                "--warmup-steps", "2"])
+    assert [r["world"] for r in ranks] == [2, 2]
+    assert all(r["step1_collectives"] > 50 for r in ranks)
+    assert ranks[0]["ckpt_writes"] and not ranks[1]["ckpt_writes"]
+    with torch.no_grad():
+        vranks, one = chip_smoke.dp_validate_path(
+            tmp, device="cpu", img=128, batch=2, n_images=5)
+    assert [r["rows"] for r in vranks] == [[2, 1], [2, 0]]
+    assert one["images"] == 5
+    meta_flags = flags + ["--img-size", "128", "--qry-img-size", "128",
+                          "--num-sup", "2", "--num-qry", "2",
+                          "--num-zero-images", "1"]
+    meta_kw = dict(img_size=128, qry_img_size=128, num_sup=2, num_qry=2,
+                   num_zero_images=1)
+    with torch.enable_grad():
+        mranks = chip_smoke.dp_meta_path(tmp, device="cpu",
+                                         driver_extra=meta_flags,
+                                         overrides=tiny, meta_kw=meta_kw)
+    assert all(r["builds"] >= 4 for r in mranks)

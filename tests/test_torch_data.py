@@ -267,13 +267,13 @@ def test_prefetch_loader_drop_last_matches_jax():
 
 
 def test_loader_refusals():
-    """The per-process split still raises (ROADMAP Queue 1 item 7);
-    RandomErasing is ported, so ``re_prob`` reaches the training loader
-    only, as in the JAX ``create_loader``."""
+    """The per-process split outside a launched process group raises and
+    names torchrun; RandomErasing is ported, so ``re_prob`` reaches the
+    training loader only, as in the JAX ``create_loader``."""
     ds = dataset.SyntheticDetectionDataset(num_images=2)
     assert dataset.PrefetchLoader(ds, 2, device="cpu",
                                   re_prob=0.5).re_prob == 0.5
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         dataset.create_loader(ds, (64, 64), 2, distributed=True,
                               device="cpu")
     for training, want in ((True, 0.3), (False, 0.0)):

@@ -261,7 +261,7 @@ def test_merge_across_processes_is_refused(monkeypatch):
     _assert_metrics_equal(one.evaluate(), ref.evaluate())
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         ev.PascalEvaluator(4, distributed=True).add_predictions(dets, target)
 
 

@@ -64,6 +64,8 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.models.backbone",
     "ood_object_detection_tpu_torch.models.csp",
     "ood_object_detection_tpu_torch.models.anchor_net",
+    "ood_object_detection_tpu_torch.parallel",
+    "ood_object_detection_tpu_torch.parallel.mesh",
 )
 
 
@@ -133,10 +135,10 @@ def test_meta_trainer_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_train_options_raise():
-    """A mesh waits for a later slice: it raises rather than run something
-    else, as a bad freeze_bn scope does. drop_path, remat_stages,
-    remat_fpn and remat_heads are ported: each builds the model with the
-    same tensors."""
+    """A mesh of more processes than the launch has raises and names
+    torchrun, rather than train on one process, as a bad freeze_bn scope
+    raises. drop_path, remat_stages, remat_fpn and remat_heads are ported:
+    each builds the model with the same tensors."""
     from ood_object_detection_tpu_torch.config import (
         default_detection_train_config, get_efficientdet_config)
     from ood_object_detection_tpu_torch.models.efficientdet import (
@@ -152,9 +154,12 @@ def test_unported_train_options_raise():
                    dict(remat_fpn=True), dict(remat_heads=True)):
         built = EfficientDet(cfg.replace(**option))
         assert {k: v.shape for k, v in built.state_dict().items()} == shapes
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(model, None, Anchors.from_config(cfg),
-                        default_detection_train_config(), mesh=object())
+    from ood_object_detection_tpu_torch.parallel import create_mesh
+    make_train_step(model, None, Anchors.from_config(cfg),
+                    default_detection_train_config(),
+                    mesh=create_mesh((1,), device="cpu"))
+    with pytest.raises(ValueError, match="torchrun"):
+        create_mesh((2,), ("data",), device="cpu")
     with pytest.raises(ValueError, match="freeze_bn"):
         model.train_bn("heads")
 

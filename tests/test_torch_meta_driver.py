@@ -109,7 +109,9 @@ def test_meta_cli_real_data(tmp_path, capsys, support_dir):
 
 
 def test_episode_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """--episode-mesh 2 outside a launch of two processes raises and names
+    torchrun (tests/test_torch_parallel_meta.py runs it launched)."""
+    with pytest.raises(ValueError, match="torchrun"):
         train_driver.main(TINY + ["--device", "cpu", "--episode-mesh", "2",
                                   "--checkpoint-dir", str(tmp_path)])
 
@@ -227,7 +229,8 @@ def test_phase_a_matches_the_jax_driver(tmp_path, capsys):
 
 def test_every_jax_flag_is_accepted_with_its_default():
     """The port's parser has every option of the JAX CLI, with the same
-    default; its one extra flag is ``--device``."""
+    default; its extra flags are ``--device`` and ``--dist-backend``,
+    which say where the run goes."""
     from ood_object_detection_tpu.meta import train_driver as jax_driver
 
     def options(parser):
@@ -236,5 +239,5 @@ def test_every_jax_flag_is_accepted_with_its_default():
                 and a.dest != "help"}
     want = options(jax_driver.build_argparser())
     got = options(train_driver.build_argparser())
-    assert set(got) - set(want) == {"device"}
+    assert set(got) - set(want) == {"device", "dist_backend"}
     assert {k: got[k] for k in want} == want

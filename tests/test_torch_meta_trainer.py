@@ -164,6 +164,11 @@ def test_default_mode_phase_b_uses_current_crops(s, trained):
 
 
 def test_sharded_meta_step_is_left_for_the_data_parallel_slice(trained):
+    """The episode-parallel step needs a launched mesh of its size: a mesh
+    of two outside torchrun raises and names it; the step itself is held
+    in tests/test_torch_parallel_meta.py."""
+    from ood_object_detection_tpu_torch.parallel import create_mesh
     _, tt, _, _ = trained
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tt.train_meta_batch_sharded([], mesh=None)
+    with pytest.raises(ValueError, match="torchrun"):
+        tt.train_meta_batch_sharded(
+            [], mesh=create_mesh((2,), ("episode",), device="cpu"))

@@ -113,11 +113,13 @@ def test_pretrain_stream_smoke(tmp_path, capsys):
     assert state.step == 4 and logs[-1]["final_step"] == 4
 
 
-@pytest.mark.parametrize("flags, item", [(["--mesh", "2"], "item 7")])
+@pytest.mark.parametrize("flags, item", [(["--mesh", "2"], "torchrun")])
 def test_unported_flags_raise(tmp_path, flags, item):
+    """--mesh 2 outside a launch of two processes raises and names
+    torchrun (tests/test_torch_parallel_cli.py runs it launched)."""
     argv = TINY + ["--device", "cpu", "--steps", "1",
                    "--checkpoint-dir", str(tmp_path / "ck")] + flags
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         pretrain.main(argv)
 
 
@@ -201,7 +203,8 @@ def test_pretrain_matches_the_jax_driver(tmp_path, capsys, monkeypatch):
 
 def test_every_jax_flag_is_accepted_with_its_default():
     """The port's parser has every option of the JAX CLI, with the same
-    default; its one extra flag is ``--device``."""
+    default; its extra flags are ``--device`` and ``--dist-backend``,
+    which say where the run goes."""
     from ood_object_detection_tpu.train import pretrain as jax_pretrain
 
     def options(parser):
@@ -210,5 +213,5 @@ def test_every_jax_flag_is_accepted_with_its_default():
                 and a.dest != "help"}
     want = options(jax_pretrain.build_argparser())
     got = options(pretrain.build_argparser())
-    assert set(got) - set(want) == {"device"}
+    assert set(got) - set(want) == {"device", "dist_backend"}
     assert {k: got[k] for k in want} == want

@@ -94,9 +94,10 @@ def test_validate_partial_final_batch_not_dropped(tmp_path):
 
 
 def test_validate_refusals(tmp_path, monkeypatch):
-    """More than one device, an orbax directory and a missing card raise
-    rather than run something else."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """A mesh of two outside a torchrun launch (it names the command), an
+    orbax directory and a missing card raise rather than run something
+    else."""
+    with pytest.raises(ValueError, match="torchrun"):
         validate.main(["--mesh", "2", "--device", "cpu"])
     orbax = tmp_path / "ckpt"
     orbax.mkdir()
