@@ -181,7 +181,19 @@ Phases, each synchronised so that a fault shows where it happened:
      NCCL with one rank a card, and the train step's images/s at
      DP_RATE_BATCH a card with 1, 2 and all cards; with one card it
      logs that and goes on.
-Phases 10, 11, 13 and 14 run with PyTorch's default cuDNN TF32 (the
+ 15. the examples (examples_path): ``examples.open_set_demo.main`` and
+     ``examples.selection_quality.main --out <file>`` at their defaults
+     (D0 at full width, 256 px, batch 16, 500 steps, f32), the two at
+     once, each in a process of its own (``chip_smoke.py --example
+     <json>``, example_main): each JSON line printed with its time, the
+     wall seconds of each stage and the kernels' launches; K3 / K4 once a
+     train step and K1 once a predict call (once a method and val batch
+     in selection_quality), K2 logged (f32 takes no packed route); finite
+     AUROC / FPR95 and mAPs, ``approx``'s overlap with ``exact`` at least
+     EXAMPLE_MIN_OVERLAP and ``exact``'s PASCAL mAP@0.5 at least
+     EXAMPLE_MIN_PASCAL; then at the examples' shapes (example_kernels)
+     K3 -> K4 and K1 against their plain versions and timed.
+Phases 10, 11, 13, 14 and 15 run with PyTorch's default cuDNN TF32 (the
 earlier phases turn it off), as a user runs the CLIs; phase 14 turns it
 off for its equality step.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
@@ -200,11 +212,13 @@ Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
        python3 chip_smoke.py --cards  (phases 1, 2 and 14 (e) alone, on
                                      two cards or more)
        (``python3 chip_smoke.py --rank <json>`` is one rank of phase 14,
-       started by its torchrun launches.)
+       started by its torchrun launches; ``--example <json>`` one example
+       of phase 15.)
 """
 import collections
 import contextlib
 import ctypes.util
+import importlib
 import io
 import json
 import math
@@ -229,11 +243,15 @@ from ood_object_detection_tpu_torch.data.device_preproc import (
 from ood_object_detection_tpu_torch import export, validate
 from ood_object_detection_tpu_torch.data import (NativeEvalLoader,
                                                  PilEvalLoader,
+                                                 SyntheticDetectionDataset,
+                                                 collate_batch,
                                                  native_decode_available,
                                                  normalize_uint8)
 from ood_object_detection_tpu_torch.data.episodic import (
     EpisodeBuilder, EpisodicDataset, SyntheticEpisodeSource)
-from ood_object_detection_tpu_torch.examples import deploy_infer
+from ood_object_detection_tpu_torch.examples import (deploy_infer,
+                                                     open_set_demo,
+                                                     selection_quality)
 from ood_object_detection_tpu_torch.evaluation import (CocoEvaluator,
                                                        PascalEvaluator,
                                                        native)
@@ -249,7 +267,6 @@ from ood_object_detection_tpu_torch.meta.inner_loop import (class_head,
                                                             inner_adapt)
 from ood_object_detection_tpu_torch.ops import (cuda_build, cuda_labeler,
                                                 cuda_nms, cuda_reduce)
-from ood_object_detection_tpu_torch.ops import post_process as pp
 from ood_object_detection_tpu_torch.ops.anchors import Anchors
 from ood_object_detection_tpu_torch.ops.boxes import pairwise_iou_yxyx
 from ood_object_detection_tpu_torch.ops.losses import detection_loss_nhwc
@@ -264,6 +281,10 @@ from ood_object_detection_tpu_torch.train.checkpoint import save_variables
 from ood_object_detection_tpu_torch.train.train_state import (
     apply_gradients, detection_loss)
 from ood_object_detection_tpu_torch.utils import StepTimer, from_jax
+
+# the module (the package's ``post_process`` is the function)
+pp = importlib.import_module(
+    "ood_object_detection_tpu_torch.ops.post_process")
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, and the f32
 # rate outside the tensor cores. The data sheet's 67 TFLOP/s counts a
@@ -350,6 +371,14 @@ DP_VAL_STEPS = 4
 DP_RATE_BATCH = 32
 DP_RATE_STEPS = 6
 DP_PROFILE_STEPS = 2
+# the examples (phase 15): the bars of the card run, approx's overlap with
+# exact (the JAX run recorded an identical detection set) and exact's
+# PASCAL mAP@0.5 (the card-trained detector learns)
+EXAMPLE_MIN_OVERLAP = 0.99
+EXAMPLE_MIN_PASCAL = 0.6
+# seconds the two example processes may take together (each took 117-121
+# s alone on an H100)
+EXAMPLE_TIMEOUT = 600
 CARD = "not read"
 # CUDA runtime calls that put an operation on the card (profiler names)
 RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
@@ -2837,6 +2866,15 @@ def main(argv=()):
         data_parallel(tmp, validate_metrics=val_metrics)
     log(f"[14] phase 14 took {time.time() - t0:.1f} s")
 
+    # 15. the two examples at their defaults (D0, 256 px, 500 steps, f32)
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
+        examples_path(tmp)
+    example_kernels()
+    sync()
+    log(f"[15] phase 15 took {time.time() - t0:.1f} s")
+
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
              source=REPO_KERNELS["K1"][0], replaces=REPO_KERNELS["K1"][1],
@@ -3804,7 +3842,275 @@ def data_parallel_cards(tmp, cards):
     log(f"[14] (e) took {time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 15. the examples: open_set_demo and selection_quality at their defaults
+
+class TimedLines(io.TextIOBase):
+    """A text sink that keeps each printed line with the seconds from the
+    sink's creation to the write that ended the line."""
+
+    def __init__(self):
+        super().__init__()
+        self.t0 = time.perf_counter()
+        self.lines = []
+        self._part = ""
+
+    def write(self, s):
+        now = time.perf_counter() - self.t0
+        *done, self._part = (self._part + s).split("\n")
+        self.lines += [(now, line) for line in done]
+        return len(s)
+
+
+def run_timed(main_fn, argv):
+    """``main_fn(argv)`` with its printed lines captured. Returns (what
+    main returned, [(seconds, line)] of its printed lines, the wall
+    seconds of the call)."""
+    out = TimedLines()
+    with contextlib.redirect_stdout(out):
+        result = main_fn(argv)
+    return result, out.lines, time.perf_counter() - out.t0
+
+
+def stage_seconds(timed, wall, marks):
+    """Wall seconds of consecutive stages of a timed run: ``marks`` is an
+    ordered list of (stage, predicate); a stage ends at the first JSON
+    line after the previous stage's end that its predicate accepts, the
+    last stage at the end of the run. A stage whose line never comes is
+    merged into the next one (its seconds are None)."""
+    out, start, pos = {}, 0.0, 0
+    for name, ends in marks:
+        hit = next((i for i in range(pos, len(timed)) if ends(timed[i][1])),
+                   None)
+        if hit is None:
+            out[name] = None
+            continue
+        out[name] = round(timed[hit][0] - start, 3)
+        start, pos = timed[hit][0], hit + 1
+    out["rest"] = round(wall - start, 3)
+    return out
+
+
+def _finite(x):
+    return isinstance(x, (int, float)) and math.isfinite(x)
+
+
+EXAMPLES = {"open_set_demo": open_set_demo,
+            "selection_quality": selection_quality}
+
+
+def example_main(spec):
+    """One example of phase 15 in its own process (``chip_smoke.py
+    --example <spec>``, started by ``examples_path``): its ``main`` on
+    ``spec['argv']`` with the printed lines timed, the kernels' launch
+    counts from 0, with the starting process's CPU threads; the result in
+    ``{out}/{name}.result.json``."""
+    spec = json.loads(spec)
+    torch.set_num_threads(spec["threads"])
+    torch.backends.cudnn.allow_tf32 = True         # as phases 10-14
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    with torch.enable_grad():
+        result, lines, wall = run_timed(EXAMPLES[spec["name"]].main,
+                                        spec["argv"])
+    with open(os.path.join(spec["out"], f"{spec['name']}.result.json"),
+              "w") as f:
+        json.dump({"result": result, "lines": lines, "wall": wall,
+                   "launches": launch_counts()}, f)
+    return 0
+
+
+def run_examples(tmp, argvs, timeout=EXAMPLE_TIMEOUT):
+    """Every example of ``argvs`` ({name: argv}) at once, each in its own
+    process (``example_main``); waits for all, stops any still running on
+    a failure. Returns {name: its result file's content}, each printed
+    line logged with its time."""
+    procs = {}
+    try:
+        for name, argv in argvs.items():
+            spec = json.dumps(dict(name=name, argv=list(argv), out=tmp,
+                                   threads=torch.get_num_threads()))
+            with open(os.path.join(tmp, f"{name}.err"), "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--example",
+                     spec], stdout=err, stderr=subprocess.STDOUT)
+        deadline = time.time() + timeout
+        for name, proc in procs.items():
+            code = proc.wait(timeout=max(deadline - time.time(), 1.0))
+            if code:
+                for line in open(os.path.join(tmp, f"{name}.err")
+                                 ).read().splitlines()[-30:]:
+                    log(f"[15] {name}: {line}")
+                check(False, f"[15] {name} exited {code}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name in argvs:
+        with open(os.path.join(tmp, f"{name}.result.json")) as f:
+            out[name] = json.load(f)
+        for at, line in out[name]["lines"]:
+            log(f"[15] {name} +{at:.1f} s {line}")
+        out[name]["timed"] = [(at, obj) for at, line in out[name]["lines"]
+                              for obj in json_lines(line)]
+    return out
+
+
+def example_kernel_inputs(device="cuda"):
+    """The kernels' inputs at the examples' call sites, at
+    selection_quality's defaults (D0 at 256 px, 6 classes, batch 16,
+    f32): the anchors, the padded ground truth of the first val batch (K3
+    -> K4 of a train step take such a batch), and the seeded model's
+    ``exact`` candidates on its images, three class biases raised by 2 so
+    that the NMS has work (K1). Returns (anchors, anchor boxes, boxes,
+    classes, candidates)."""
+    args = selection_quality.build_argparser().parse_args([])
+    size = (args.image_size, args.image_size)
+    cfg = get_efficientdet_config(
+        "efficientdet_d0", num_classes=args.num_classes).replace(
+        image_size=size)
+    model = create_model_from_config(cfg, seed=0, device=device)
+    val = SyntheticDetectionDataset(num_images=args.batch_size,
+                                    image_size=size,
+                                    num_classes=args.num_classes, seed=101)
+    batch = collate_batch([val[i] for i in range(args.batch_size)])
+    anchors = Anchors.from_config(cfg)
+    with torch.no_grad():
+        model.class_net.predict_bias().view(9, cfg.num_classes)[:, :3] += 2.0
+        cls, box = model(normalize_uint8(
+            torch.from_numpy(batch["image"]).to(device)))
+        cand = pp.select_candidates(cls, box, anchors, cfg.num_classes,
+                                    cfg.max_detection_points,
+                                    topk_method="exact")
+    return (anchors, torch.from_numpy(anchors.boxes).to(device),
+            torch.from_numpy(batch["bbox"]).to(device),
+            torch.from_numpy(batch["cls"]).to(device), cand)
+
+
+def example_kernels():
+    """Phase 15's kernels on the card at the examples' call sites
+    (``example_kernel_inputs``): K3 -> K4 against their plain versions
+    (label_compare) and K1 (hard NMS at 0.3, 100 an image, as
+    ``generate_detections``) keeping the plain version's indices, then
+    each timed beside its bound and plain version."""
+    anchors, anchor_boxes, boxes, cls, cand = example_kernel_inputs()
+    _, err_box, codes, _ = label_compare(anchor_boxes, boxes, cls,
+                                         unmatched=0.5)
+    dets_k, keep_k = pp.batch_detection(*cand[:4], kernels=True)
+    dets_p, keep_p = pp.batch_detection(*cand[:4], kernels=False)
+    sync()
+    check(torch.equal(keep_k, keep_p), "[15] K1 keep indices differ")
+    check(torch.allclose(dets_k, dets_p, rtol=1e-4, atol=1e-4),
+          "[15] K1 and plain detections differ")
+    log(f"[15] examples' shapes: K3 / K4 [{boxes.shape[0]}, "
+        f"{boxes.shape[1]}] x {anchor_boxes.shape[0]} anchors equal to "
+        f"plain ({int((codes >= 0).sum())} positives, box max abs err "
+        f"{err_box:.3g}); K1 [{keep_k.shape[0]}, {cand[0].shape[1]}] keep "
+        f"equal ({int((keep_k >= 0).sum())} kept)")
+    t = label_kernel_times(anchor_boxes, boxes, cls, tag=f"[15] [{CARD}]")
+    t["K1"] = nms_times(cand, 100, 0.3, "[15]")
+    return t
+
+
+def examples_path(tmp, device="cuda", open_args=(), select_args=(),
+                  min_overlap=EXAMPLE_MIN_OVERLAP,
+                  min_pascal=EXAMPLE_MIN_PASCAL):
+    """Phase 15: ``examples.open_set_demo.main`` and
+    ``examples.selection_quality.main --out`` at their defaults (or with
+    ``open_args`` / ``select_args``), the two at once in two processes
+    (``run_examples``), each result line printed with the wall seconds of
+    each stage and the kernels' launches. Fails on a non-finite AUROC,
+    FPR95 or mAP, on ``approx``'s overlap with ``exact`` below
+    ``min_overlap``, on ``exact``'s PASCAL mAP@0.5 below ``min_pascal``,
+    on a result file that differs from the printed line, and on the card
+    unless K3 and K4 launched once a train step and K1 once a predict call
+    (K2 is logged: in f32 no selection takes its packed route). Returns
+    {example: (result, stages, launches)}."""
+    dev = [] if device == "cuda" else ["--device", device]
+    on_card = torch.device(device).type == "cuda"
+    path = os.path.join(tmp, "selection_quality_out.json")
+    argvs = {"open_set_demo": list(open_args) + dev,
+             "selection_quality": ["--out", path] + list(select_args) + dev}
+    runs = run_examples(tmp, argvs)
+    out = {}
+
+    run = runs["open_set_demo"]
+    result, launches, wall = run["result"], run["launches"], run["wall"]
+    steps = open_set_demo.build_argparser().parse_args(
+        argvs["open_set_demo"]).steps
+    stages = stage_seconds(run["timed"], wall, [
+        ("build", lambda o: o.get("phase") == "train"),
+        ("train", lambda o: o.get("step") == steps),
+        ("evaluate", lambda o: "auroc_gt_regions" in o)])
+    for key in ("auroc_gt_regions", "fpr95_gt_regions"):
+        check(_finite(result[key]), f"[15] open_set_demo {key}: "
+              f"{result[key]!r}")
+    if result["auroc_detections"] is None:
+        check("note" in result, "[15] open_set_demo: no detection AUROC "
+              "and no note")
+    else:
+        check(_finite(result["auroc_detections"])
+              and _finite(result["fpr95_detections"]),
+              f"[15] open_set_demo detection AUROC / FPR95: {result}")
+    if on_card:
+        check(launches["K3"] == launches["K4"] == steps,
+              f"[15] open_set_demo: K3 / K4 must launch once a train step "
+              f"({steps}): {launches}")
+        check(launches["K1"] == 2, f"[15] open_set_demo: K1 must launch "
+              f"once a predict call (2): {launches}")
+    log(f"[15] [{CARD}] open_set_demo (beside selection_quality): "
+        f"{wall:.1f} s, stages (s) {stages}, train "
+        f"{1e3 * (stages['train'] or 0) / steps:.1f} ms a step; launches "
+        f"{launches}")
+    out["open_set_demo"] = (result, stages, launches)
+
+    run = runs["selection_quality"]
+    result, launches, wall = run["result"], run["launches"], run["wall"]
+    args = selection_quality.build_argparser().parse_args(
+        argvs["selection_quality"])
+    steps, val_batches = args.steps, args.val_images // args.batch_size
+    with open(path) as f:
+        written = json_lines(f.read())
+    check(len(written) == 1 and written[0]["selection_quality"] == result,
+          "[15] selection_quality: the --out file differs from the result")
+    stages = stage_seconds(run["timed"], wall, [
+        ("build", lambda o: o.get("phase") == "train"),
+        ("train", lambda o: o.get("phase") == "train_done"),
+        ("forward", lambda o: o.get("phase") == "forward_done"),
+        ("exact", lambda o: o.get("method") == "approx"),
+        ("approx", lambda o: o.get("method") == "per_anchor"),
+        ("per_anchor", lambda o: "selection_quality" in o)])
+    for method, metrics in result.items():
+        for key in ("pascal_map50", "coco_map", "coco_map50"):
+            check(_finite(metrics[key]), f"[15] selection_quality {method} "
+                  f"{key}: {metrics[key]!r}")
+    check(result["approx"]["overlap_vs_exact"] >= min_overlap,
+          f"[15] selection_quality: approx's overlap with exact "
+          f"{result['approx']['overlap_vs_exact']} < {min_overlap}")
+    check(result["exact"]["pascal_map50"] >= min_pascal,
+          f"[15] selection_quality: exact's PASCAL mAP@0.5 "
+          f"{result['exact']['pascal_map50']} < {min_pascal}")
+    if on_card:
+        check(launches["K3"] == launches["K4"] == steps,
+              f"[15] selection_quality: K3 / K4 must launch once a train "
+              f"step ({steps}): {launches}")
+        check(launches["K1"] == len(result) * val_batches,
+              f"[15] selection_quality: K1 must launch once a method and "
+              f"val batch ({len(result)} x {val_batches}): {launches}")
+    log(f"[15] [{CARD}] selection_quality (beside open_set_demo): "
+        f"{wall:.1f} s, stages (s) {stages}, train "
+        f"{1e3 * (stages['train'] or 0) / steps:.1f} ms a step; launches "
+        f"{launches}")
+    out["selection_quality"] = (result, stages, launches)
+    return out
+
+
 if __name__ == "__main__":
     with torch.no_grad():
-        sys.exit(rank_main(sys.argv[2]) if sys.argv[1:2] == ["--rank"]
-                 else main(sys.argv[1:]))
+        if sys.argv[1:2] == ["--rank"]:
+            sys.exit(rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--example"]:
+            sys.exit(example_main(sys.argv[2]))
+        sys.exit(main(sys.argv[1:]))

@@ -1,10 +1,16 @@
 """Training hyperparameter config (framework-free dataclass).
 
 A copy of ``ood_object_detection_tpu.config.train_config`` as data, kept
-in this package so the port never imports the JAX package. The JAX
-package's mesh, orbax-checkpoint and async-eval fields are left out: no
-ported code reads them yet (data parallelism, checkpointing and the
-pretrain driver are later slices, ROADMAP Queue 1).
+in this package so the port never imports the JAX package; every field
+and default is the JAX package's. The pretrain driver
+(``train/pretrain.py``) fills ``checkpoint_dir`` from its
+``--checkpoint-dir``, as the JAX driver does, and opens its checkpoints
+there. The other fields of the mesh, checkpoint and eval groups are data
+only, here as in the JAX package, whose drivers read none of them: the
+process group comes from ``--mesh`` (``parallel.create_mesh``; a 2-D mesh
+raises), and the pretrain CLI keeps 3 torch checkpoints
+(``train/checkpoint.py``, always written synchronously), evaluates every
+``--val-freq`` steps and saves when the val loss improves and at the end.
 """
 from __future__ import annotations
 
@@ -41,6 +47,20 @@ class TrainConfig:
     batch_size: int = 32
     max_instances_per_image: int = 100
     workers: int = 4
+
+    # data parallelism
+    mesh_shape: Tuple[int, ...] = (-1,)     # -1 = all devices on the data axis
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+
+    # checkpointing
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every_steps: int = 1000
+    keep_checkpoints: int = 5
+    async_checkpoint: bool = True
+
+    # eval
+    eval_every_steps: int = 500
+    eval_metric: str = "map"
 
     # logging
     log_every_steps: int = 50

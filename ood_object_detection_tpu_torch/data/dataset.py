@@ -1,12 +1,13 @@
 """Datasets and the batching loader, feeding the card.
 
 Port of ``ood_object_detection_tpu.data.dataset``. The datasets, the
-padding and the collation are host numpy, copied; images are decoded with
-PIL (the JAX package's native libjpeg decode is a later item, ROADMAP Queue
-1 item 4). ``PrefetchLoader`` collates on host threads, then copies each
-batch to its ``device`` (the CUDA card unless the caller names another)
-from pinned memory with ``non_blocking=True`` and normalises the uint8
-images there (``normalize_uint8``), a few batches ahead of the consumer.
+padding and the collation are host numpy, copied; JPEGs are decoded by the
+native libjpeg core (``data/native_decode.py``) where it loads and by PIL
+where it does not, as in the JAX package. ``PrefetchLoader`` collates on
+host threads, then copies each batch to its ``device`` (the CUDA card
+unless the caller names another) from pinned memory with
+``non_blocking=True`` and normalises the uint8 images there
+(``normalize_uint8``), a few batches ahead of the consumer.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..factory import resolve_device
+from . import native_decode
 from .device_preproc import normalize_uint8
 from .parsers import Parser
 from .random_erasing import random_erasing
@@ -31,7 +33,10 @@ MAX_INSTANCES = 100
 
 class DetectionDataset:
     """Image + annotation dataset (reference DetectionDatset,
-    dataset.py:12-65), decoded with PIL."""
+    dataset.py:12-65). A JPEG is decoded by the GIL-free native core when
+    ``native_decode.available()``, then wrapped as a PIL image so the
+    transforms are unchanged; other files, and JPEGs where the core does
+    not load or fails, are decoded by PIL (the JAX package's order)."""
 
     def __init__(self, data_dir: str, parser: Parser,
                  transform: Optional[Callable] = None):
@@ -56,7 +61,15 @@ class DetectionDataset:
             if k in ann:
                 anno[k] = ann[k].copy()
         path = os.path.join(self.data_dir, info["file_name"])
-        img = Image.open(path).convert("RGB")
+        img = None
+        if path.lower().endswith((".jpg", ".jpeg")):
+            if native_decode.available():
+                with open(path, "rb") as f:
+                    arr = native_decode.decode_jpeg(f.read())
+                if arr is not None:
+                    img = Image.fromarray(arr)
+        if img is None:
+            img = Image.open(path).convert("RGB")
         if self.transform is not None:
             img, anno = self.transform(img, anno)
         return img, anno

@@ -74,9 +74,10 @@ def create_model_from_config(config: ModelConfig, bench_task: str = "",
                          "'predict', 'train'")
     if checkpoint_path and not checkpoint_path.endswith((".pth", ".pt")):
         raise NotImplementedError(
-            f"{checkpoint_path!r}: only reference-format .pth / .pt "
-            "checkpoints are read; the port reads no orbax directory, and "
-            "its own train checkpoints are ROADMAP Queue 1 item 5")
+            f"{checkpoint_path!r}: only .pth / .pt files are read (a "
+            "reference-format checkpoint or the port's own variables file, "
+            "train.checkpoint.save_variables); the port reads no orbax "
+            "directory")
     device = resolve_device(device)
     model = EfficientDet(config)
     model.init_weights(torch.Generator().manual_seed(seed))

@@ -66,3 +66,7 @@ def decode_boxes(rel_codes: torch.Tensor, anchors: torch.Tensor,
     if output_xyxy:
         return torch.stack([xmin, ymin, xmax, ymax], dim=-1)
     return torch.stack([ymin, xmin, ymax, xmax], dim=-1)
+
+
+# the reference's public name (effdet/anchors.py:51), as the JAX package
+decode_box_outputs = decode_boxes

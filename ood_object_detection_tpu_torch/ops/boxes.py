@@ -42,3 +42,26 @@ def clip_boxes_xyxy(boxes: torch.Tensor, size_hw: torch.Tensor) -> torch.Tensor:
     boxes = torch.clamp(boxes, min=0.0)
     wh = torch.stack([size_hw[..., 1], size_hw[..., 0]], dim=-1)
     return torch.minimum(boxes, torch.cat([wh, wh], dim=-1))
+
+
+def pairwise_iou_xyxy(boxes1: torch.Tensor, boxes2: torch.Tensor
+                      ) -> torch.Tensor:
+    """Pairwise IoU of xyxy boxes: ``pairwise_iou_yxyx`` with both inputs'
+    coordinates swapped to yxyx (the same operations, axes swapped)."""
+    return pairwise_iou_yxyx(xyxy_to_yxyx(boxes1), xyxy_to_yxyx(boxes2))
+
+
+def clip_boxes_yxyx(boxes: torch.Tensor, size_hw: torch.Tensor
+                    ) -> torch.Tensor:
+    """Clip [..., 4] yxyx boxes to [0, size], size_hw = (height, width):
+    clamp at 0, then an elementwise min against [h, w, h, w]."""
+    boxes = torch.clamp(boxes, min=0.0)
+    return torch.minimum(boxes, torch.cat([size_hw, size_hw], dim=-1))
+
+
+def yxyx_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    return boxes[..., [1, 0, 3, 2]]
+
+
+def xyxy_to_yxyx(boxes: torch.Tensor) -> torch.Tensor:
+    return boxes[..., [1, 0, 3, 2]]

@@ -8,6 +8,12 @@ its score is positive, suppresses or decays the others by their IoU with
 it, and zeroes it. These are the plain versions of kernel K1
 (``ops/cuda_nms.py``); the same f32 operations in the same order as the
 JAX functions.
+
+``batched_nms`` / ``batched_soft_nms`` are the JAX package's single-image
+per-class functions (torchvision's ``batched_nms`` contract): boxes
+``[N, 4]``, scores ``[N]`` and classes ``[N]``, kept apart by
+``class_offset_boxes``. The batched K1 wrapper of the same name is
+``ops.cuda_nms.batched_nms``.
 """
 from __future__ import annotations
 
@@ -90,3 +96,36 @@ def batched_nms_plain(boxes: torch.Tensor, scores: torch.Tensor,
         return soft_nms_fixed(boxes, scores, max_out, method_gaussian=True,
                               sigma=sigma, score_threshold=score_threshold)
     return nms_fixed(boxes, scores, iou_threshold, max_out)
+
+
+def class_offset_boxes(boxes: torch.Tensor, classes: torch.Tensor
+                       ) -> torch.Tensor:
+    """Shift each class's [N, 4] boxes into a coordinate range of its own,
+    ``classes * (max(boxes) + 1)``, so one class-agnostic NMS never
+    suppresses across classes."""
+    offsets = classes.to(boxes.dtype) * (torch.amax(boxes) + 1.0)
+    return boxes + offsets[:, None]
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                classes: torch.Tensor, iou_threshold: float = 0.5,
+                max_out: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class hard NMS of one image (torchvision ``batched_nms``):
+    (keep_idx [max_out] int32, -1 where fewer survive; kept scores)."""
+    idx, kept = nms_fixed(class_offset_boxes(boxes, classes)[None],
+                          scores[None], iou_threshold, max_out)
+    return idx[0], kept[0]
+
+
+def batched_soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                     classes: torch.Tensor, method_gaussian: bool = True,
+                     sigma: float = 0.5, iou_threshold: float = 0.5,
+                     score_threshold: float = 0.001, max_out: int = 100
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class soft-NMS of one image (the reference's
+    ``batched_soft_nms``, effdet/soft_nms.py:115-169)."""
+    idx, kept = soft_nms_fixed(
+        class_offset_boxes(boxes, classes)[None], scores[None], max_out,
+        method_gaussian=method_gaussian, sigma=sigma,
+        iou_threshold=iou_threshold, score_threshold=score_threshold)
+    return idx[0], kept[0]

@@ -222,7 +222,7 @@ class Candidates(NamedTuple):
     """The top-k anchors of each image, ready for NMS."""
     logits: torch.Tensor          # [B, k, 1] winning-class logit
     box_codes: torch.Tensor       # [B, k, 4] box regressions
-    anchors: torch.Tensor         # [B, k, 4] yxyx anchors
+    anchors: Optional[torch.Tensor]   # [B, k, 4] yxyx anchors
     classes: torch.Tensor         # [B, k] int32 winning class
     indices: torch.Tensor         # [B, k] anchor ids
     key_all: Optional[torch.Tensor]   # [B, A_tot] packed keys (bf16 path)
@@ -230,7 +230,8 @@ class Candidates(NamedTuple):
 
 
 def select_candidates(cls_outputs: List[torch.Tensor],
-                      box_outputs: List[torch.Tensor], anchors: Anchors,
+                      box_outputs: List[torch.Tensor],
+                      anchors: Optional[Anchors],
                       num_classes: int, max_detection_points: int,
                       ood_method: Optional[str] = None,
                       kernels: bool = True,
@@ -244,7 +245,8 @@ def select_candidates(cls_outputs: List[torch.Tensor],
     for; other logits take the two-reduce path (max, argmax, OOD score).
     ``exact`` and ``approx`` select (anchor, class) pairs
     (``_exact_topk_pairs``, ``_approx_topk_pairs``) and return the OOD
-    scores of every method in ``ood_all``.
+    scores of every method in ``ood_all``. With ``anchors`` None the
+    candidates carry no anchors (``post_process``).
     """
     if topk_method not in TOPK_METHODS:
         raise ValueError(f"unknown topk_method {topk_method!r}; expected one "
@@ -268,9 +270,30 @@ def select_candidates(cls_outputs: List[torch.Tensor],
         k = min(max_detection_points, max_all.shape[1])
         logits, indices = _topk(max_all, k)
         classes = torch.gather(arg_all, 1, indices)
-    return Candidates(logits[..., None], _gather_boxes(box_outputs, indices),
-                      anchors.boxes_for_indices(indices), classes, indices,
-                      key_all, ood_all)
+    return Candidates(
+        logits[..., None], _gather_boxes(box_outputs, indices),
+        None if anchors is None else anchors.boxes_for_indices(indices),
+        classes, indices, key_all, ood_all)
+
+
+def post_process(cls_outputs: List[torch.Tensor],
+                 box_outputs: List[torch.Tensor], num_classes: int,
+                 max_detection_points: int = 5000,
+                 topk_method: str = "per_anchor", topk_recall: float = 0.95
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """The global top-k candidates over all levels: (cls_topk [B, k, 1]
+    winning-class logits, box_topk [B, k, 4] regressions, anchor indices
+    [B, k], classes [B, k] int32), the reference ``_post_process``
+    contract (effdet/bench.py:12-56) and the JAX package's
+    ``post_process``. The selection is ``select_candidates``'s;
+    ``topk_recall`` is accepted for the JAX signature and unused, since
+    every selection here is exact. On the packed-key path (bf16 logits,
+    ``per_anchor``) the logits come back in f32, each the exact value of
+    its bf16 logit."""
+    cand = select_candidates(cls_outputs, box_outputs, None, num_classes,
+                             max_detection_points, topk_method=topk_method)
+    return cand.logits, cand.box_codes, cand.indices, cand.classes
 
 
 def nms_inputs(cls_logits: torch.Tensor, box_out: torch.Tensor,

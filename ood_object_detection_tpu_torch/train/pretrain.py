@@ -290,6 +290,7 @@ def _run(args, mesh, init_variables):
     tcfg = TrainConfig(
         opt=args.opt, lr=args.lr, clip_grad_norm=args.clip_grad,
         ema_decay=args.ema_decay, batch_size=args.batch_size,
+        checkpoint_dir=args.checkpoint_dir,
         remat_cls_loss=args.remat_cls_loss)
     model = create_model_from_config(model_cfg, seed=0, device=device)
     anchors = Anchors.from_config(model_cfg)
@@ -347,7 +348,7 @@ def _run(args, mesh, init_variables):
             soft_nms=model_cfg.soft_nms, topk_method=model_cfg.topk_method)
         return dets
 
-    ckpt = CheckpointManager(args.checkpoint_dir, keep=3, mesh=mesh)
+    ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=3, mesh=mesh)
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)

@@ -395,3 +395,75 @@ def test_data_parallel_drives_run_on_the_cpu(tmp_path):
                                          driver_extra=meta_flags,
                                          overrides=tiny, meta_kw=meta_kw)
     assert all(r["builds"] >= 4 for r in mranks)
+
+
+def test_stage_seconds_splits_a_timed_run():
+    """Phase 15's stage reader: each stage ends at the first later line
+    its predicate accepts; a stage whose line never comes is None and its
+    time goes to the next; the rest runs to the end of the call."""
+    timed = [(1.0, {"phase": "train"}), (4.0, {"step": 100}),
+             (9.0, {"step": 200}), (9.5, {"set": "known"}),
+             (10.0, {"result": 1})]
+    stages = chip_smoke.stage_seconds(timed, 12.0, [
+        ("build", lambda o: o.get("phase") == "train"),
+        ("train", lambda o: o.get("step") == 200),
+        ("forward", lambda o: o.get("phase") == "forward_done"),
+        ("evaluate", lambda o: "result" in o)])
+    assert stages == {"build": 1.0, "train": 8.0, "forward": None,
+                      "evaluate": 1.0, "rest": 2.0}
+
+
+def test_timed_lines_keep_each_printed_line():
+    sink = chip_smoke.TimedLines()
+    print('{"a": 1}\nplain', file=sink)
+    sink.write('{"b"')
+    sink.write(': 2}\n')
+    assert [line for _, line in sink.lines] == ['{"a": 1}', "plain",
+                                                '{"b": 2}']
+    assert all(t >= 0 for t, _ in sink.lines)
+
+
+@pytest.mark.parametrize("min_pascal", [0.0, 1.01])
+def test_examples_path_drive_runs_on_the_cpu(tmp_path, min_pascal):
+    """Phase 15's drive (examples_path) on the CPU at 128 px, 2 steps,
+    32 val images: both examples' lines are captured and timed, their
+    result checks pass (finite AUROC / FPR95 and mAPs, approx's overlap
+    with exact at least 0.99, the --out file equal to the result) and the
+    plain versions launch nothing; a PASCAL bar the 2-step detector cannot
+    reach fails the phase."""
+    kw = dict(device="cpu", min_pascal=min_pascal,
+              open_args=["--steps", "2", "--image-size", "128"],
+              select_args=["--steps", "2", "--image-size", "128",
+                           "--val-images", "32"])
+    if min_pascal > 1:
+        with torch.enable_grad(), pytest.raises(AssertionError,
+                                                match="PASCAL mAP@0.5"):
+            chip_smoke.examples_path(str(tmp_path), **kw)
+        return
+    with torch.enable_grad():
+        out = chip_smoke.examples_path(str(tmp_path), **kw)
+    result, stages, launches = out["open_set_demo"]
+    assert np.isfinite(result["auroc_gt_regions"])
+    assert set(stages) == {"build", "train", "evaluate", "rest"}
+    assert set(launches.values()) == {0}
+    result, stages, launches = out["selection_quality"]
+    assert set(result) == {"exact", "approx", "per_anchor"}
+    assert result["approx"]["overlap_vs_exact"] >= 0.99
+    assert all(stages[k] is not None for k in ("build", "train", "forward",
+                                               "exact", "approx",
+                                               "per_anchor"))
+    assert set(launches.values()) == {0}
+
+
+def test_example_kernel_inputs_have_the_examples_shapes():
+    """Phase 15's kernel inputs on the CPU: selection_quality's val batch
+    (16 images, 100 padded rows) against D0@256's 12,276 anchors, and
+    5,000 ``exact`` candidates an image of which the NMS keeps some."""
+    anchors, anchor_boxes, boxes, cls, cand = \
+        chip_smoke.example_kernel_inputs(device="cpu")
+    assert anchor_boxes.shape == (12276, 4)
+    assert boxes.shape == (16, 100, 4) and cls.shape == (16, 100)
+    assert (cls > 0).sum(dim=1).min() >= 1
+    assert cand.logits.shape == (16, 5000, 1)
+    dets, keep = chip_smoke.pp.batch_detection(*cand[:4], kernels=False)
+    assert (keep >= 0).sum() > 16

@@ -30,8 +30,8 @@ package's, on the committed deploy-fixture JPEGs.
   sorted (``test_golden_counts_scores_and_ood_hold``). The CLI against
   ``golden.json`` to tests/test_deploy_golden.py's tolerances (lines
   55-69) FAILS (``test_deploy_path_matches_golden``, 37 of the 50 rows
-  unmatched): fault F3 in ROADMAP.md. It is marked slow, as the JAX test
-  is (about 90 s alone with the fixture's build); it also fails.
+  unmatched): F3 in ROADMAP.md, a known deviation. It is marked slow, as
+  the JAX test is (about 90 s alone with the fixture's build).
 - The well-posed golden (``tests/data/deploy_fixture_torch/golden.json``,
   made by ``tests/deploy_fixture_torch.py`` with the JAX package's deploy
   path on the CPU, the same JPEGs and recipe of weights): of each image's
@@ -40,10 +40,17 @@ package's, on the committed deploy-fixture JPEGs.
   2 steps): 32 of the 50 top rows. The JAX package's bf16 path matches
   all 32; its f32 path and the port's bf16 path miss most of them
   (``test_torch_golden_rows_follow_precision``, counts printed with
-  ``-s``), so the rule does not make the rows independent of the rounding
-  and F3 stays open. The port's rows against every pinned row
+  ``-s``), so the rule does not make the rows independent of the rounding.
+  The port's rows against every pinned row
   (``test_deploy_path_matches_torch_golden``) FAIL (27 of 32 unmatched)
   and the test is marked slow, as ``test_deploy_path_matches_golden`` is.
+- What decides F3 (``test_torch_golden_pins_summation_order``): the
+  unchanged JAX package on an exact reparametrisation of the golden's
+  variables (the expanded channels of every MBConv block permuted: the
+  same function in exact arithmetic, another order of the f32 sums) keeps
+  its f32 heads within 1e-4 and misses 26 of the 32 pinned rows in bf16.
+  The goldens pin XLA's CPU summation order, not the model; the two slow
+  tests above hold the port to that order and are left as they are.
 """
 import json
 import os
@@ -248,11 +255,13 @@ def golden_case(tmp_path_factory):
         case[f"port_{sums}"] = _rows(dets.numpy(), ood.numpy(),
                                      case["scales"])
     jx = jax_normalize(batch["image"])
+    case["variables"], case["jx"] = variables, jx
     for dtype in ("bfloat16", "float32"):
         cfg = jax_cfg("efficientdet_d0", num_classes=90, compute_dtype=dtype,
                       soft_nms=True)
         jax_bench = JaxBench(JaxDet(cfg), ood_method="energy")
-        dets, ood = jax.jit(jax_bench.forward_with_ood)(variables, jx)
+        case[f"jax_run_{dtype}"] = jax.jit(jax_bench.forward_with_ood)
+        dets, ood = case[f"jax_run_{dtype}"](variables, jx)
         case[f"jax_{dtype}"] = _rows(np.asarray(dets), np.asarray(ood),
                                      case["scales"])
     with open(GOLDEN_PATH) as f:
@@ -317,11 +326,97 @@ def test_torch_golden_rows_follow_precision(golden_case):
     assert counts["port_f32"] >= 20
 
 
+PERMUTATION_SEED = 11
+
+
+def _permute_expanded_channels(variables, seed=PERMUTATION_SEED):
+    """An exact reparametrisation of the EfficientNet backbone: in every
+    MBConv block with an expansion, the expanded channels are permuted
+    (one numpy permutation a block): the expansion conv's output axis and
+    its BatchNorm, the depthwise conv and its BatchNorm, the
+    squeeze-excite reduce conv's input axis and its expand conv's output
+    axis and bias, and the project conv's input axis. The function is the
+    same in exact arithmetic; only the order of the f32 sums over the
+    expanded channels (the project conv, the squeeze-excite reduce) moves.
+    Returns a new variable tree; ``variables`` is not touched."""
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
+    backbone, bn_stats = params["backbone"], stats["backbone"]
+    blocks = sorted(name for name, block in backbone.items()
+                    if "conv_pw" in block and "conv_pwl" in block)
+    for name in blocks:
+        block, block_stats = backbone[name], bn_stats[name]
+        mid = block["conv_pw"]["kernel"].shape[-1]
+        perm = rng.permutation(mid)
+        block["conv_pw"]["kernel"] = block["conv_pw"]["kernel"][..., perm]
+        block["conv_dw"]["kernel"] = block["conv_dw"]["kernel"][..., perm]
+        for bn in ("bn1", "bn2"):
+            for leaf in ("scale", "bias"):
+                block[bn][leaf] = block[bn][leaf][perm]
+            for leaf in ("mean", "var"):
+                block_stats[bn][leaf] = block_stats[bn][leaf][perm]
+        se = block["se"]
+        se["conv_reduce"]["kernel"] = se["conv_reduce"]["kernel"][:, :, perm]
+        se["conv_expand"]["kernel"] = se["conv_expand"]["kernel"][..., perm]
+        se["conv_expand"]["bias"] = se["conv_expand"]["bias"][perm]
+        block["conv_pwl"]["kernel"] = block["conv_pwl"]["kernel"][:, :, perm]
+    return {"params": params, "batch_stats": stats}, len(blocks)
+
+
+# the permuted JAX bf16 run misses 26 of the 32 pinned rows on the CPU
+# (the port's bf16 path: 27); asserted less a margin of 4
+PERMUTED_BF16_UNMATCHED_AT_LEAST = 22
+
+
+def test_torch_golden_pins_summation_order(golden_case):
+    """F3's deciding witness, in JAX alone: the well-posed golden's pinned
+    rows against the unchanged JAX package run on exactly reparametrised
+    variables (``_permute_expanded_channels``). In f32 the class and box
+    head outputs of both variable sets agree to rtol 1e-5 / atol 1e-5, so
+    the function is the same; the JAX bf16 deploy path on the permuted
+    variables then misses most of the pinned rows that it matches on the
+    original ones. So the golden pins XLA's CPU summation order, not the
+    model. The count prints with ``-s``.
+
+    The f32 check's atol is 1e-4: at 1e-5 it fails in 760 of 737,280
+    head outputs, by at most 3.6e-5 (the reordered f32 sums, carried
+    through the network)."""
+    variables, jx = golden_case["variables"], golden_case["jx"]
+    permuted, n_blocks = _permute_expanded_channels(variables)
+    assert n_blocks == 15
+
+    cfg = jax_cfg("efficientdet_d0", num_classes=90,
+                  compute_dtype="float32", soft_nms=True)
+    heads = jax.jit(lambda v, x: JaxDet(cfg).apply(v, x, False))
+    gap = 0.0
+    for want, got in zip(jax.tree_util.tree_leaves(heads(variables, jx)),
+                         jax.tree_util.tree_leaves(heads(permuted, jx))):
+        want, got = np.asarray(want), np.asarray(got)
+        gap = max(gap, float(np.abs(got - want).max()))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+    dets, ood = golden_case["jax_run_bfloat16"](permuted, jx)
+    rows = _rows(np.asarray(dets), np.asarray(ood), golden_case["scales"])
+    golden = _torch_golden()
+    pinned = [img["rows"] for img in golden["images"]]
+    unmatched = _unmatched(pinned, rows)
+    print(f"well-posed golden, {golden['pinned']} pinned rows: the JAX bf16 "
+          f"path on permuted expanded channels leaves {unmatched} unmatched "
+          f"(on the original variables "
+          f"{_unmatched(pinned, golden_case['jax_bfloat16'])}); f32 heads "
+          f"of the two variable sets at most {gap:.3g} apart")
+    assert _unmatched(pinned, golden_case["jax_bfloat16"]) == 0
+    assert unmatched >= PERMUTED_BF16_UNMATCHED_AT_LEAST
+
+
 @pytest.mark.slow
 def test_deploy_path_matches_torch_golden(golden_case):
     """The port's rows on the golden fixture (bf16, the CPU) against every
     row of the well-posed golden, to tests/test_deploy_golden.py's
-    tolerances; the counts within 12. Fails while F3 is open."""
+    tolerances; the counts within 12. The pinned rows follow XLA's CPU
+    summation order (``test_torch_golden_pins_summation_order``), so this
+    fails on the port (F3, a known deviation)."""
     golden = _torch_golden()
     assert golden["pinned"] >= 20
     rows = golden_case["port_f32"]
@@ -337,7 +432,8 @@ def test_deploy_path_matches_torch_golden(golden_case):
 @pytest.mark.slow
 def test_deploy_path_matches_golden(golden_case, tmp_path):
     """The port's CLI with the golden fixture's weights on the CPU against
-    tests/data/deploy_fixture/golden.json."""
+    tests/data/deploy_fixture/golden.json, whose rows pin XLA's CPU
+    summation order (F3, a known deviation): fails on the port."""
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)
     out = str(tmp_path / "dets.json")

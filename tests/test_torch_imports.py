@@ -66,6 +66,12 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.models.anchor_net",
     "ood_object_detection_tpu_torch.parallel",
     "ood_object_detection_tpu_torch.parallel.mesh",
+    "ood_object_detection_tpu_torch.ops",
+    "ood_object_detection_tpu_torch.ops.nms",
+    "ood_object_detection_tpu_torch.ops.boxes",
+    "ood_object_detection_tpu_torch.ops.box_coder",
+    "ood_object_detection_tpu_torch.examples.open_set_demo",
+    "ood_object_detection_tpu_torch.examples.selection_quality",
 )
 
 
@@ -102,6 +108,40 @@ def test_importing_the_port_loads_no_jax():
     assert "ood_object_detection_tpu_torch.ops.cuda_nms" in loaded
     assert "ood_object_detection_tpu_torch.ops.cuda_labeler" in loaded
     assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_public_api_exports_load_no_jax():
+    """The names the JAX package exports from ``ops`` and ``models`` (the
+    public API's remainder), imported in a fresh process: no jax."""
+    code = (
+        "import sys\n"
+        "from ood_object_detection_tpu_torch.ops import (post_process, "
+        "batched_nms, batched_soft_nms, class_offset_boxes, "
+        "pairwise_iou_xyxy, clip_boxes_yxyx, yxyx_to_xyxy, xyxy_to_yxyx, "
+        "decode_box_outputs)\n"
+        "from ood_object_detection_tpu_torch.models import (BiFpn, "
+        "BiFpnLayer, Fnode, FpnCombine, HeadNet, ConvBnAct, SeparableConv, "
+        "SqueezeExcite, ResampleFeatureMap, get_act, interpolate)\n"
+        "from ood_object_detection_tpu_torch.config.train_config import "
+        "TrainConfig\n"
+        "assert TrainConfig().eval_metric == 'map'\n"
+        "assert callable(post_process) and callable(batched_nms)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'ood_object_detection_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("example", ["open_set_demo", "selection_quality"])
+def test_examples_without_device_need_cuda(monkeypatch, example):
+    import importlib
+    module = importlib.import_module(
+        f"ood_object_detection_tpu_torch.examples.{example}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--steps", "1", "--image-size", "128"])
 
 
 def test_the_loader_without_device_needs_cuda(monkeypatch):

@@ -12,6 +12,8 @@ k equal to the row length, jax's CPU top-k (``approx_max_k``) sorts
 unstably and returns tied keys in no fixed order, while for k below it
 (as at D0@512: 5000 of 49,104) it returns them lowest index first, the
 order the port reproduces."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +27,11 @@ from ood_object_detection_tpu.ops.post_process import (
     generate_detections as jax_generate_detections,
 )
 from ood_object_detection_tpu.ops.anchors import Anchors as JaxAnchors
-from ood_object_detection_tpu_torch.ops import post_process as pp
 from ood_object_detection_tpu_torch.ops.anchors import Anchors
+
+# the module (the package's ``post_process`` is the function)
+pp = importlib.import_module(
+    "ood_object_detection_tpu_torch.ops.post_process")
 
 C = 90
 IMG = 128

@@ -21,6 +21,8 @@ for, and to JAX's ``approx`` in their values and in every pair above the
 last tied value; its detections are held against JAX's ``batch_detection``
 on the ``lax.top_k`` candidates.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,8 +39,11 @@ from ood_object_detection_tpu.ops.post_process import (
     generate_detections as jax_generate_detections,
     post_process as jax_post_process,
 )
-from ood_object_detection_tpu_torch.ops import post_process as pp
 from ood_object_detection_tpu_torch.ops.anchors import Anchors
+
+# the module (the package's ``post_process`` is the function)
+pp = importlib.import_module(
+    "ood_object_detection_tpu_torch.ops.post_process")
 
 C = 90
 IMG = 128
