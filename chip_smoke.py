@@ -167,8 +167,9 @@ Phases, each synchronised so that a fault shows where it happened:
      pretrain CLI with ``--mesh 2`` (DP_STEPS steps, --eval-map every
      DP_VAL_FREQ): the merged val loss and saved_best equal on both
      ranks, the checkpoint written by rank 0 alone, K3 / K4 once a step
-     and a val batch and K1 once a val batch on each rank; (b) the CLI as
-     one rank over NCCL (``--mesh 1``), 3 steps; (c) ``validate --mesh 2``
+     and a val batch and K1 once a val batch on each rank; (b) one rank
+     over NCCL: (a)'s step timed with its collective window, then the CLI
+     as that rank (``--mesh 1``), 3 steps; (c) ``validate --mesh 2``
      over phase 9's fixture at 8 a rank against phase 9's metrics, the
      ground truth at AP 1.0 through the merged evaluators, K2 and K1 once
      a non-empty batch on each rank; (d) the meta driver with
@@ -193,9 +194,25 @@ Phases, each synchronised so that a fault shows where it happened:
      EXAMPLE_MIN_OVERLAP and ``exact``'s PASCAL mAP@0.5 at least
      EXAMPLE_MIN_PASCAL; then at the examples' shapes (example_kernels)
      K3 -> K4 and K1 against their plain versions and timed.
+ 16. the spatial leg (spatial_path): a torchrun launch of this script's
+     ``--rank`` mode (rank_spatial), two ranks on cuda:0 over gloo as a
+     (1, 2) (data, spatial) mesh, each holding half of every image's
+     rows: step 1 of ``make_train_step(..., spatial_axis="spatial")`` at
+     D0@512, 90 classes, f32 with TF32 off, ``freeze_bn="none"``, 8
+     images, against one process on the same images to phase 14 (a)'s
+     bars (hold_step1); then SPATIAL_STEPS steps timed with K3 / K4 once
+     a step on each rank, the spatial group's exchanges (halos, gathers,
+     squeeze-excite sums) a step, a profiler window of one step's
+     collectives and exchanges with their host ms (the ``spatial_*``
+     spans), and each rank's step peak memory, which must
+     be below one process's on the 8 images. With four cards
+     (``--cards``, spatial_cards): the same at (2, 2) over NCCL, one rank
+     a card, then one step of tf_efficientdet_d7x at 1536 px, f32, one
+     image, on (1, 4) (spatial_d7x: finite losses, K3 / K4 once, each
+     card's peak memory); with fewer cards it logs that and goes on.
 Phases 10, 11, 13, 14 and 15 run with PyTorch's default cuDNN TF32 (the
 earlier phases turn it off), as a user runs the CLIs; phase 14 turns it
-off for its equality step.
+off for its equality step, phase 16 for all of it.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
 K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
 episode's query labels through the kernels against the plain ones, K1
@@ -209,9 +226,11 @@ Prints a JSON line of per-kernel numbers, the nvidia-smi line, and last
 
 Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
                                      $CUDA_HOME/bin, default /usr/local/cuda)
-       python3 chip_smoke.py --cards  (phases 1, 2 and 14 (e) alone, on
-                                     two cards or more)
-       (``python3 chip_smoke.py --rank <json>`` is one rank of phase 14,
+       python3 chip_smoke.py --cards  (phases 1, 2, 14 (e) and phase 16's
+                                     four-card part alone, on two cards
+                                     or more)
+       (``python3 chip_smoke.py --rank <json>`` is one rank of phase 14
+       or 16,
        started by its torchrun launches; ``--example <json>`` one example
        of phase 15.)
 """
@@ -379,6 +398,11 @@ EXAMPLE_MIN_PASCAL = 0.6
 # seconds the two example processes may take together (each took 117-121
 # s alone on an H100)
 EXAMPLE_TIMEOUT = 600
+# the spatial leg (phase 16): the global batch, the timed steps after step
+# 1, the image size of the D7x step (its published size)
+SPATIAL_BATCH = 8
+SPATIAL_STEPS = 3
+D7X_IMG = 1536
 CARD = "not read"
 # CUDA runtime calls that put an operation on the card (profiler names)
 RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
@@ -2647,8 +2671,9 @@ def breadth_kernel_cases(gen):
 
 
 def main(argv=()):
-    """Every phase (no arguments), or with ``--cards`` phases 1, 2 and
-    14 (e) alone, on a machine with two cards or more."""
+    """Every phase (no arguments), or with ``--cards`` phases 1, 2, 14 (e)
+    and 16's four-card part alone, on a machine with two cards or
+    more."""
     if list(argv) not in ([], ["--cards"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2688,6 +2713,7 @@ def main(argv=()):
         torch.backends.cudnn.allow_tf32 = True     # as phases 10-14
         with tempfile.TemporaryDirectory() as tmp:
             data_parallel_cards(tmp, torch.cuda.device_count())
+            spatial_cards(tmp, torch.cuda.device_count())
         print(smi)
         return 0
 
@@ -2874,6 +2900,15 @@ def main(argv=()):
     example_kernels()
     sync()
     log(f"[15] phase 15 took {time.time() - t0:.1f} s")
+
+    # 16. the spatial leg: two gloo ranks on this card split D0@512's rows
+    #     as a (1, 2) mesh, against one process; across cards where there
+    #     are four
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial_path(tmp)
+    log(f"[16] phase 16 took {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
@@ -3182,7 +3217,7 @@ def torchrun(nproc, spec, tag, timeout=600):
 
 
 def rank_main(spec):
-    """One rank of a phase-14 launch (``chip_smoke.py --rank <spec>``,
+    """One rank of a phase-14 or 16 launch (``chip_smoke.py --rank <spec>``,
     started by torchrun): the drive ``spec['drive']`` with this script's
     prints in ``{out}/rank<r>.log`` and its result in
     ``{out}/rank<r>.json``."""
@@ -3230,10 +3265,12 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32 = saved
 
 
-def dp_train_setup(device, img, classes, overrides, batch):
-    """The train path of phase 14 through the user's entry points: D0 at
-    ``img`` (f32, seed 0), its train state and the global batch."""
-    bench = create_model("efficientdet_d0", bench_task="train",
+def dp_train_setup(device, img, classes, overrides, batch,
+                   model="efficientdet_d0"):
+    """The train path of phases 14 and 16 through the user's entry
+    points: ``model`` (D0) at ``img`` (f32, seed 0), its train state and
+    the global batch."""
+    bench = create_model(model, bench_task="train",
                          num_classes=classes, seed=0, device=device,
                          image_size=(img, img), **overrides)
     tcfg = default_detection_train_config()
@@ -3247,7 +3284,8 @@ def collective_window(step, state, local, steps, on_card):
     forward and backward, the positives', the losses' and the
     gradient's) and their host ms, the gradient all-reduce's share of it,
     the NCCL kernels' device ms, which include their wait for the slowest
-    rank)."""
+    rank; where the step makes them, the spatial group's exchanges by
+    kind and their host ms)."""
     sync_if(on_card)
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -3260,7 +3298,9 @@ def collective_window(step, state, local, steps, on_card):
         for _ in range(steps):
             state, _ = step(state, local)
         sync_if(on_card)
-    spans = {"all_reduce_sum": [0, 0.0], "grad_all_reduce": [0, 0.0]}
+    spans = {k: [0, 0.0] for k in ("all_reduce_sum", "grad_all_reduce",
+                                    "spatial_halo", "spatial_gather",
+                                    "spatial_se_sum")}
     device = 0.0
     for e in prof.key_averages():
         if e.key in spans and e.device_type == DeviceType.CPU:
@@ -3268,11 +3308,18 @@ def collective_window(step, state, local, steps, on_card):
             spans[e.key][1] += e.cpu_time_total / 1e3
         elif "nccl" in e.key.lower() and e.device_type == DeviceType.CUDA:
             device += e.self_device_time_total / 1e3
-    return step_ms, {
+    window = {
         "allreduces": spans["all_reduce_sum"][0] / steps,
         "allreduce_host_ms": round(spans["all_reduce_sum"][1] / steps, 3),
         "of_it_gradient_ms": round(spans["grad_all_reduce"][1] / steps, 3),
         "nccl_kernel_ms": round(device / steps, 3)}
+    # the spatial group's exchanges (phase 16), where the step makes them
+    for kind in ("halo", "gather", "se_sum"):
+        count, ms = spans[f"spatial_{kind}"]
+        if count:
+            window[f"{kind}s"] = count / steps
+            window[f"{kind}_host_ms"] = round(ms / steps, 3)
+    return step_ms, window
 
 
 def rank_dp_pretrain(spec):
@@ -3482,8 +3529,78 @@ def rank_dp_rate(spec):
             torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0}
 
 
+def rank_spatial(spec):
+    """Phase 16 on one rank: ``spec['model']`` at ``spec['img']`` on a 2-D
+    (data, spatial) mesh of shape ``spec['mesh']``, f32 with TF32 off,
+    ``freeze_bn='none'``: step 1 of ``make_train_step(...,
+    spatial_axis='spatial')`` on this rank's data block of a global batch
+    of ``spec['batch']`` (metrics, launches, the spatial group's exchanges,
+    the collectives, the peak device memory above what the step began
+    with, the parameters saved unless ``spec['save']`` is False), then
+    ``spec['steps']`` steps timed (ms a step, launches, the exchanges a
+    step) and a profiler window of one step (the collectives and the
+    exchanges a step and their host ms: ``collective_window``)."""
+    from ood_object_detection_tpu_torch.parallel import (create_mesh,
+                                                         shard_batch, spatial)
+    from ood_object_detection_tpu_torch.parallel.mesh import all_reduce_sum
+    mesh = create_mesh(tuple(spec["mesh"]), ("data", "spatial"),
+                       device=spec["device"], backend=spec["backend"])
+    on_card = mesh.device.type == "cuda"
+    bench, state, tx, tcfg, batch = dp_train_setup(
+        mesh.device, spec["img"], spec["classes"], spec["overrides"],
+        spec["batch"], spec["model"])
+    step = make_train_step(bench, tx, Anchors.from_config(bench.config),
+                           tcfg, mesh=mesh, freeze_bn="none",
+                           spatial_axis="spatial")
+    local = shard_batch(mesh, batch)
+    result = {"device": str(mesh.device), "shape": mesh.shape}
+    with torch.enable_grad(), no_tf32():
+        sync_if(on_card)
+        start = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+        reset_launches()
+        spatial.reset_exchanges()
+        all_reduce_sum.calls = 0
+        state, metrics = step(state, local)
+        sync_if(on_card)
+        result.update(
+            step1={k: float(v) for k, v in metrics.items()},
+            step1_launches=launch_counts(),
+            step1_exchanges=dict(spatial.EXCHANGES),
+            step1_collectives=all_reduce_sum.calls)
+        if on_card:
+            result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            result["step_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       - start) / 2 ** 30
+        if spec.get("save", True):
+            torch.save({n: p.detach().cpu()
+                        for n, p in bench.model.named_parameters()},
+                       f"{spec['out']}/params{mesh.rank}.pt")
+        steps = spec["steps"]
+        if steps:
+            reset_launches()
+            spatial.reset_exchanges()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, metrics = step(state, local)
+            sync_if(on_card)
+            result.update(
+                step_ms=(time.perf_counter() - t0) * 1e3 / steps,
+                launches=launch_counts(),
+                exchanges={k: v / steps
+                           for k, v in spatial.EXCHANGES.items()},
+                last={k: float(v) for k, v in metrics.items()})
+            _, result["window"] = collective_window(step, state, local, 1,
+                                                    on_card)
+    mesh.close()
+    return result
+
+
 RANK_DRIVES = {"pretrain": rank_dp_pretrain, "validate": rank_dp_validate,
-               "meta": rank_dp_meta, "rate": rank_dp_rate}
+               "meta": rank_dp_meta, "rate": rank_dp_rate,
+               "spatial": rank_spatial}
 
 
 def params_close(got, want, before, rtol=5e-4, atol=1e-5):
@@ -3499,6 +3616,78 @@ def params_close(got, want, before, rtol=5e-4, atol=1e-5):
         diff += float(((got[n] - w) ** 2).sum())
         norm += float(((w - before[n]) ** 2).sum())
     return worst[0], worst[1], over, math.sqrt(diff / norm)
+
+
+def one_process_steps(device, img, classes, overrides, batch, freeze_bn,
+                      model="efficientdet_d0"):
+    """Step 1 of one process on the global batch and again on it in
+    reverse order, f32 with cuDNN's TF32 off: ([(metrics, parameters)]
+    of the two, the parameters before, the first step's peak device GiB
+    above what was allocated when it began (0 on the CPU))."""
+    on_card = torch.device(device).type == "cuda"
+    runs, peak = [], 0.0
+    with no_tf32():
+        for reverse in (False, True):
+            bench, state, tx, tcfg, gbatch = dp_train_setup(
+                device, img, classes, overrides, batch, model)
+            before = {n: p.detach().cpu().clone()
+                      for n, p in bench.model.named_parameters()}
+            step = make_train_step(bench, tx, Anchors.from_config(
+                bench.config), tcfg, freeze_bn=freeze_bn)
+            gbatch = {k: (v.flip(0) if reverse else v).to(device)
+                      for k, v in gbatch.items()}
+            if on_card:
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+            with torch.enable_grad():
+                _, metrics = step(state, gbatch)
+            sync_if(on_card)
+            if on_card and not reverse:
+                peak = (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         {n: p.detach().cpu().clone()
+                          for n, p in bench.model.named_parameters()}))
+            del bench, state, tx, gbatch
+    return runs, before, peak
+
+
+def hold_step1(tag, out, ranks, runs, before, on_card):
+    """Phase 14 (a)'s bars for the ranks' step 1 (``{out}/params<r>.pt``)
+    against one process's (``one_process_steps``): losses and grad_norm
+    to rtol 2e-4, num_positives exactly, the update's relative L2
+    difference at most 3 times (and 1e-5 at least) what one process's
+    moves on the batch reversed; K3 / K4 once each on the card. Returns
+    (one process's metrics, the update's bound)."""
+    (want, ref), (reversed_metrics, reversed_params) = runs
+    floor = params_close(reversed_params, ref, before)
+    gaps = [params_close(torch.load(f"{out}/params{r}.pt"), ref, before)
+            for r in range(len(ranks))]
+    log(f"{tag} step 1 (f32, TF32 off), one process: {want}; the batch "
+        f"reversed: {reversed_metrics}; by rank: "
+        f"{[r['step1'] for r in ranks]}")
+    log(f"{tag} parameters after step 1 against one process's (the largest "
+        "excess over rtol 5e-4 / atol 1e-5, its parameter, the elements "
+        "beyond, the updates' relative L2 difference): one process on the "
+        f"batch reversed {floor}; by rank {gaps}")
+    bound = max(3 * floor[3], 1e-5)
+    for r, res in enumerate(ranks):
+        got = res["step1"]
+        for k in ("loss", "class_loss", "box_loss", "grad_norm"):
+            check(abs(got[k] - want[k]) <= 2e-4 * abs(want[k]),
+                  f"{tag} rank {r} step 1 {k} {got[k]} vs one process "
+                  f"{want[k]}")
+        check(got["num_positives"] == want["num_positives"],
+              f"{tag} rank {r} num_positives {got['num_positives']} vs "
+              f"{want['num_positives']}")
+        check(gaps[r][3] <= bound, f"{tag} rank {r}: the update differs "
+              f"from one process's by {gaps[r][3]:.3g} (relative L2), "
+              f"beyond {bound:.3g}")
+        if on_card:
+            check(res["step1_launches"]["K3"] == res["step1_launches"]["K4"]
+                  == 1, f"{tag} rank {r} step launches "
+                  f"{res['step1_launches']}")
+    return want, bound
 
 
 def dp_pretrain_path(tmp, device="cuda:0", backend="gloo", nproc=2,
@@ -3536,53 +3725,10 @@ def dp_pretrain_path(tmp, device="cuda:0", backend="gloo", nproc=2,
 
     # the same step in this process on the global batch, and again on the
     # batch in reverse order
-    one_device = "cuda:0" if on_card else device
-    runs = []
-    with no_tf32():
-        for reverse in (False, True):
-            bench, state, tx, tcfg, gbatch = dp_train_setup(
-                one_device, img, classes, overrides, batch * nproc)
-            before = {n: p.detach().cpu().clone()
-                      for n, p in bench.model.named_parameters()}
-            step = make_train_step(bench, tx, Anchors.from_config(
-                bench.config), tcfg, freeze_bn="backbone")
-            with torch.enable_grad():
-                _, metrics = step(state, {
-                    k: (v.flip(0) if reverse else v).to(one_device)
-                    for k, v in gbatch.items()})
-            sync_if(on_card)
-            runs.append(({k: float(v) for k, v in metrics.items()},
-                         {n: p.detach().cpu().clone()
-                          for n, p in bench.model.named_parameters()}))
-            del bench, state, tx, gbatch
-    (want, ref), (reversed_metrics, reversed_params) = runs
-    floor = params_close(reversed_params, ref, before)
-    gaps = [params_close(torch.load(f"{out}/params{r}.pt"), ref, before)
-            for r in range(nproc)]
-    log(f"{tag} step 1 (f32, TF32 off), one process x {batch * nproc}: "
-        f"{want}; the batch reversed: {reversed_metrics}; by rank: "
-        f"{[r['step1'] for r in ranks]}")
-    log(f"{tag} parameters after step 1 against one process's (the largest "
-        "excess over rtol 5e-4 / atol 1e-5, its parameter, the elements "
-        "beyond, the updates' relative L2 difference): one process on the "
-        f"batch reversed {floor}; by rank {gaps}")
-    bound = max(3 * floor[3], 1e-5)
-    for r, res in enumerate(ranks):
-        got = res["step1"]
-        for k in ("loss", "class_loss", "box_loss", "grad_norm"):
-            check(abs(got[k] - want[k]) <= 2e-4 * abs(want[k]),
-                  f"{tag} rank {r} step 1 {k} {got[k]} vs one process "
-                  f"{want[k]}")
-        check(got["num_positives"] == want["num_positives"],
-              f"{tag} rank {r} num_positives {got['num_positives']} vs "
-              f"{want['num_positives']}")
-        check(gaps[r][3] <= bound, f"{tag} rank {r}: the update differs "
-              f"from one process's by {gaps[r][3]:.3g} (relative L2), "
-              f"beyond {bound:.3g}")
-        if on_card:
-            check(res["step1_launches"]["K3"] == res["step1_launches"]["K4"]
-                  == 1, f"{tag} rank {r} step launches "
-                  f"{res['step1_launches']}")
+    runs, before, _ = one_process_steps(
+        "cuda:0" if on_card else device, img, classes, overrides,
+        batch * nproc, "backbone")
+    want, bound = hold_step1(tag, out, ranks, runs, before, on_card)
     rel = {k: abs(ranks[0]["step1"][k] - want[k]) / abs(want[k])
            for k in ("loss", "class_loss", "box_loss", "grad_norm")}
     log(f"{tag} step 1 of {nproc} ranks x {batch} vs one process x "
@@ -3639,16 +3785,20 @@ def dp_pretrain_path(tmp, device="cuda:0", backend="gloo", nproc=2,
 
 
 def dp_nccl_path(tmp, device="cuda", tag="[14] (b)"):
-    """Drive (b): the pretrain CLI as one rank over NCCL (``--mesh 1``
-    under torchrun), 3 steps: the data-parallel path runs on the card."""
+    """Drive (b): the data-parallel step as one rank over NCCL, timed with
+    its collective window (drive (a)'s step, at DP_BATCH), then the
+    pretrain CLI as that rank (``--mesh 1`` under torchrun), 3 steps: the
+    data-parallel path runs on the card."""
     out = f"{tmp}/dp_nccl"
     ranks = torchrun(1, dict(
-        drive="pretrain", out=out, device=device, backend="nccl", step=False,
-        cli=["--num-classes", str(NUM_CLASSES), "--batch-size",
-             str(DP_BATCH), "--steps", "3", "--val-freq", "100",
-             "--log-freq", "3", "--workers", "4", "--mesh", "1",
-             "--device", device, "--checkpoint-dir", f"{out}/ck",
-             "--per-cat-dir", f"{out}/pc"], card=CARD), tag)
+        drive="pretrain", out=out, device=device, backend="nccl", img=IMG,
+        classes=NUM_CLASSES, batch=DP_BATCH, overrides={},
+        window=DP_PROFILE_STEPS, card=CARD, cli=[
+            "--num-classes", str(NUM_CLASSES), "--batch-size",
+            str(DP_BATCH), "--steps", "3", "--val-freq", "100",
+            "--log-freq", "3", "--workers", "4", "--mesh", "1",
+            "--device", device, "--checkpoint-dir", f"{out}/ck",
+            "--per-cat-dir", f"{out}/pc"]), tag)
     res = ranks[0]
     check(res["cli_collectives"] >= 3 * 3,
           f"{tag} the data-parallel step ran {res['cli_collectives']} "
@@ -3659,6 +3809,10 @@ def dp_nccl_path(tmp, device="cuda", tag="[14] (b)"):
     log(f"{tag} [{CARD}] the pretrain CLI as one rank over nccl: 3 steps at "
         f"{DP_BATCH}, {res['cli_collectives']} collectives, launches "
         f"{res['cli_launches']}, logs {res['cli_logs']}")
+    log(f"{tag} [{CARD}] the data-parallel step as one rank over nccl "
+        f"(D0@512 f32, TF32 on, {DP_BATCH} images): {res['step_ms']:.3f} ms "
+        f"a step, {DP_BATCH * 1e3 / res['step_ms']:.2f} images/s; "
+        f"collectives a step {res['window']}")
     return res
 
 
@@ -3840,6 +3994,110 @@ def data_parallel_cards(tmp, cards):
             f"images/s; rank 0 collectives a step {ranks[0]['window']}; "
             f"peak {max(r['peak_gib'] for r in ranks):.2f} GiB")
     log(f"[14] (e) took {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 16. the spatial leg: the images' rows split over a 2-D mesh's ranks
+
+def spatial_path(tmp, device="cuda:0", backend="gloo", mesh=(1, 2),
+                 img=IMG, classes=NUM_CLASSES, batch=SPATIAL_BATCH,
+                 overrides=None, steps=SPATIAL_STEPS, tag="[16]"):
+    """Phase 16's equality drive: ``rank_spatial`` on a ``mesh`` launch
+    (two gloo ranks sharing cuda:0 by default; ``device`` 'cuda' is one
+    card a rank) at D0@``img``, f32 with TF32 off, a global batch of
+    ``batch``; step 1 held against one process on the same batch to phase
+    14 (a)'s bars (``hold_step1``), K3 / K4 once a step on each rank, the
+    exchanges of a step logged with their host ms (the profiled step's
+    ``spatial_*`` spans), and on the card each rank's step peak memory
+    below one process's on the global batch. Returns the ranks'
+    results."""
+    overrides = overrides or {}
+    on_card = torch.device(device).type == "cuda"
+    nproc = mesh[0] * mesh[1]
+    out = f"{tmp}/spatial_{mesh[0]}x{mesh[1]}_{backend}"
+    ranks = torchrun(nproc, dict(
+        drive="spatial", out=out, device=device, backend=backend,
+        mesh=list(mesh), model="efficientdet_d0", img=img, classes=classes,
+        batch=batch, overrides=overrides, steps=steps, card=CARD), tag)
+    runs, before, one_peak = one_process_steps(
+        "cuda:0" if on_card else device, img, classes, overrides, batch,
+        "none")
+    want, bound = hold_step1(tag, out, ranks, runs, before, on_card)
+    for r, res in enumerate(ranks):
+        check(res["shape"] == {"data": mesh[0], "spatial": mesh[1]},
+              f"{tag} rank {r} mesh {res['shape']}")
+        check(all(math.isfinite(v) for v in res["last"].values()),
+              f"{tag} rank {r} metrics after {steps} more steps "
+              f"{res['last']}")
+        if on_card:
+            check(res["launches"]["K3"] == res["launches"]["K4"] == steps,
+                  f"{tag} rank {r}: K3 / K4 must launch once a step "
+                  f"({steps}): {res['launches']}")
+            check(res["step_peak_gib"] < one_peak,
+                  f"{tag} rank {r}: the step's peak {res['step_peak_gib']:.3f}"
+                  f" GiB is not below one process's {one_peak:.3f} GiB")
+    rel = {k: abs(ranks[0]["step1"][k] - want[k]) / abs(want[k])
+           for k in ("loss", "class_loss", "box_loss", "grad_norm")}
+    slowest = max(res["step_ms"] for res in ranks)
+    log(f"{tag} step 1 of the {mesh} mesh ({backend}) x {batch} vs one "
+        f"process: relative differences {rel}, num_positives "
+        f"{want['num_positives']:.0f} equal, the update within {bound:.3g} "
+        f"relative L2; exchanges in step 1 {ranks[0]['step1_exchanges']}, "
+        f"{ranks[0]['step1_collectives']} all_reduce_sum collectives")
+    for r, res in enumerate(ranks):
+        ratio = res.get("step_peak_gib", 0.0) / one_peak if one_peak else 0.0
+        log(f"{tag} [{CARD}] rank {r} ({res['device']}, {backend}): "
+            f"{res['step_ms']:.3f} ms a step, launches {res['launches']}; "
+            f"exchanges a step {res['exchanges']}; a profiled step's "
+            f"collectives and exchanges with their host ms "
+            f"{res['window']}; the step's peak "
+            f"{res.get('step_peak_gib', 0.0):.3f} GiB above its start "
+            f"(one process {one_peak:.3f}, ratio {ratio:.3f}), peak "
+            f"{res.get('peak_gib', 0.0):.3f} GiB")
+    log(f"{tag} [{CARD}] spatial step D0@{img} f32 (TF32 off) x {batch}, "
+        f"mesh {mesh} over {backend}: {slowest:.3f} ms a step (slowest "
+        f"rank), {batch * 1e3 / slowest:.2f} images/s")
+    return ranks
+
+
+def spatial_d7x(tmp, cards, tag="[16] (cards)"):
+    """The case the leg exists for: one step of ``tf_efficientdet_d7x`` at
+    its 1536 px, 90 classes, f32, one image a data block, on a (1,
+    ``cards``) mesh over NCCL, one card a rank: finite losses, K3 / K4
+    once on each rank, each card's peak memory."""
+    ranks = torchrun(cards, dict(
+        drive="spatial", out=f"{tmp}/spatial_d7x", device="cuda",
+        backend="nccl", mesh=[1, cards], model="tf_efficientdet_d7x",
+        img=D7X_IMG, classes=NUM_CLASSES, batch=1, overrides={}, steps=1,
+        save=False, card=CARD), tag, timeout=900)
+    for r, res in enumerate(ranks):
+        check(all(math.isfinite(v) for v in res["step1"].values())
+              and all(math.isfinite(v) for v in res["last"].values()),
+              f"{tag} rank {r} D7x metrics {res['step1']} {res['last']}")
+        check(res["step1_launches"]["K3"] == res["step1_launches"]["K4"]
+              == 1, f"{tag} rank {r} launches {res['step1_launches']}")
+    log(f"{tag} [{CARD}] tf_efficientdet_d7x@{D7X_IMG} f32, 1 image, mesh "
+        f"(1, {cards}) over nccl: step 1 {ranks[0]['step1']}; "
+        f"{ranks[0]['step_ms']:.3f} ms a step (step 2); exchanges a step "
+        f"{ranks[0]['exchanges']}; a profiled step's collectives and "
+        f"exchanges with their host ms {ranks[0]['window']}; "
+        f"peak GiB by card {[round(r['peak_gib'], 3) for r in ranks]}, the "
+        f"step's {[round(r['step_peak_gib'], 3) for r in ranks]}")
+    return ranks
+
+
+def spatial_cards(tmp, cards):
+    """Phase 16 across cards (``--cards``, four cards or more): a (2, 2)
+    NCCL run of ``spatial_path``, then ``spatial_d7x`` on (1, 4); with
+    fewer cards it logs that and returns."""
+    if cards < 4:
+        log(f"[16] (cards) skipped: this machine has {cards} card(s)")
+        return
+    t0 = time.time()
+    spatial_path(tmp, device="cuda", backend="nccl", mesh=(2, 2),
+                 tag="[16] (cards)")
+    spatial_d7x(tmp, 4)
+    log(f"[16] (cards) took {time.time() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import (BatchNorm2d, Conv2d, SqueezeExcite, apply_drop,
-                     drop_mask, get_act, remat)
+                     drop_mask, get_act, max_pool2d, remat)
 
 
 def round_channels(channels: float, multiplier: float = 1.0,
@@ -517,7 +517,9 @@ class _Bottleneck(nn.Module):
 
 
 class ResNetBackbone(nn.Module):
-    """ResNet-50 style backbone -> C3 / C4 / C5 (strides 8 / 16 / 32)."""
+    """ResNet-50 style backbone -> C3 / C4 / C5 (strides 8 / 16 / 32);
+    ``spatial``: the stem pool's shards (``layers.max_pool2d``)."""
+    spatial = None
 
     def __init__(self, layers: Tuple[int, ...] = (3, 4, 6, 3)):
         super().__init__()
@@ -538,7 +540,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None) -> List[torch.Tensor]:
         x = F.relu(self.bn_stem(self.conv_stem(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
+        x = max_pool2d(x, 3, 2, "", self.spatial)
         outs = []
         for i, names in enumerate(self.layer_names):
             for name in names:

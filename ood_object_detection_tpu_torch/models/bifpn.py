@@ -32,7 +32,11 @@ def _resample(cfg: ModelConfig, in_channels: int, reduction_ratio: float
 
 class FpnCombine(nn.Module):
     """Resample each input node to the target resolution / width and fuse
-    them with sum, softmax-attention or fast-attention edge weights."""
+    them with sum, softmax-attention or fast-attention edge weights. With
+    ``spatial`` (``parallel.spatially_sharded``) a node that came out whole
+    (an upsampled map too short to split) meets blocks of rows as this
+    rank's block of it."""
+    spatial = None
 
     def __init__(self, cfg: ModelConfig, feature_info: Sequence[Dict[str, int]],
                  inputs_offsets: Tuple[int, ...], target_reduction: int,
@@ -52,6 +56,11 @@ class FpnCombine(nn.Module):
 
     def forward(self, x: List[torch.Tensor]) -> torch.Tensor:
         nodes = [self.resample[str(off)](x[off]) for off in self.inputs_offsets]
+        rows = min(n.shape[2] for n in nodes)
+        if self.spatial is not None and any(n.shape[2] > rows
+                                            for n in nodes):
+            nodes = [n if n.shape[2] == rows else self.spatial.own_rows(n)
+                     for n in nodes]
         if self.weight_method == "sum":
             return sum(nodes)
         w = self.edge_weights.to(nodes[0].dtype)

@@ -18,10 +18,9 @@ import dataclasses
 from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm2d, Conv2d, get_act
+from .layers import BatchNorm2d, Conv2d, get_act, max_pool2d
 
 
 def _conv_bn(parent: nn.Module, name: str, in_ch: int, out_ch: int, k: int,
@@ -139,7 +138,9 @@ CSP_DEFS = {
 
 class CspBackbone(nn.Module):
     """CSP backbone emitting the three deepest features (strides 8 / 16 /
-    32); ``feature_info`` lists their channels."""
+    32); ``feature_info`` lists their channels. ``spatial``: the stem
+    pool's shards (``layers.max_pool2d``)."""
+    spatial = None
 
     def __init__(self, definition: CspDef):
         super().__init__()
@@ -166,7 +167,7 @@ class CspBackbone(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> List[torch.Tensor]:
         x = _run(self, "stem", x, self.act)
         if self.stem_pool:
-            x = F.max_pool2d(x, 3, 2, padding=1)
+            x = max_pool2d(x, 3, 2, "", self.spatial)
         features = {}
         for i, r in enumerate(self.reductions):
             x = getattr(self, f"stage_{i}")(x)

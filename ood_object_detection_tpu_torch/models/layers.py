@@ -11,6 +11,13 @@ f32 from a low-precision input and returns the input's dtype (flax
 
 Padding: ``pad_type='same'`` is TF SAME (asymmetric for stride > 1);
 ``pad_type=''`` is symmetric ``(k-1)//2 * dilation``.
+
+Image-H sharding (``parallel.spatially_sharded``): the modules with a
+``spatial`` attribute (``Conv2d``, ``SqueezeExcite``,
+``ResampleFeatureMap``; the FPN combine and the ResNet / CSP stems in
+their modules) and the pool / interpolate functions given one run on a
+rank's block of rows as ``parallel/spatial.py`` sets out; with
+``spatial`` None (outside the block) they compute exactly as before.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import all_reduce_sum
+from ..parallel.spatial import Shards, window_halo
 
 _ACTS: Dict[str, Callable] = {
     "swish": F.silu,
@@ -61,6 +69,39 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int, dilation: int = 1,
 
 def _is_same(pad_type: str) -> bool:
     return pad_type in ("same", "SAME")
+
+
+def sharded_window(spatial: Optional[Shards], x: torch.Tensor,
+                   kernel: int, stride: int, dilation: int, same: bool,
+                   op: Callable, fill: float = 0.0) -> torch.Tensor:
+    """A window op (conv or pool) under ``spatial``: ``op(x, False)`` runs
+    it with its own padding, ``op(x, True)`` on rows whose H padding is in
+    place (it pads W alone). A whole map (or no ``spatial``) runs as it
+    is. A block of rows whose output rows split over the ranks takes its
+    halo and the image-edge padding (``fill``) in H; where the halo would
+    reach past a neighbour's block, the map is gathered whole and the
+    rank keeps its rows of the output. An output that does not split
+    (a map too short) is computed whole from the gathered map."""
+    if spatial is None or not spatial.is_split(x):
+        return op(x, False)
+    height = spatial.global_height(x)
+    pads = _same_pads(height, kernel, stride, dilation) if same else \
+        ((kernel - 1) // 2 * dilation,) * 2
+    halo = window_halo(height, spatial.count, kernel, stride, dilation,
+                       pads)
+    if halo is None:
+        return op(spatial.gather(x), False)
+    if max(halo) > x.shape[2]:
+        return spatial.own_rows(op(spatial.gather(x), False))
+    return op(spatial.halo(x, *halo, fill=fill), True)
+
+
+def _w_pads(x: torch.Tensor, kernel: int, stride: int, dilation: int,
+            same: bool):
+    """A window op's (left, right) padding of the W dim."""
+    if same:
+        return _same_pads(x.shape[3], kernel, stride, dilation)
+    return ((kernel - 1) // 2 * dilation,) * 2
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +143,10 @@ def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d with the JAX package's padding rules; the f32 weight and
-    bias are cast to the input's dtype per call."""
+    bias are cast to the input's dtype per call. With ``spatial`` a conv
+    that reads other rows (kernel or stride above 1) takes its halo
+    (``sharded_window``)."""
+    spatial: Optional[Shards] = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
@@ -116,12 +160,24 @@ class Conv2d(nn.Conv2d):
         self.init_kind = init_kind
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.same:
-            x = pad_same(x, self.kernel_size[0], self.stride[0],
-                         self.dilation[0])
+        k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        if self.spatial is not None and (k > 1 or s > 1):
+            return sharded_window(self.spatial, x, k, s, d, self.same,
+                                  self._conv)
+        return self._conv(x)
+
+    def _conv(self, x: torch.Tensor, rows_padded: bool = False
+              ) -> torch.Tensor:
+        k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        padding = self.padding
+        if rows_padded:
+            x = F.pad(x, (*_w_pads(x, k, s, d, self.same), 0, 0))
+            padding = 0
+        elif self.same:
+            x = pad_same(x, k, s, d)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+                        padding, self.dilation, self.groups)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -308,17 +364,28 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
-def interpolate(x: torch.Tensor, out_hw, mode: str = "nearest"
-                ) -> torch.Tensor:
+def interpolate(x: torch.Tensor, out_hw, mode: str = "nearest",
+                spatial: Optional[Shards] = None) -> torch.Tensor:
     """Resize the spatial dims to ``out_hw`` as the JAX package's
     ``interpolate`` does: nearest upsampling by a repeat, else
     ``jax.image.resize``, which samples at half-pixel centres and
     antialiases when it shrinks ('nearest' -> 'nearest-exact'; 'bilinear'
     and 'bicubic' through the antialiased kernels, whose cubic is Keys'
     a = -0.5 as jax's; bilinear enlarging through the plain kernel,
-    which it equals there). Linear modes compute in f32 and round once."""
-    h, w = x.shape[2:]
+    which it equals there). Linear modes compute in f32 and round once.
+
+    With ``spatial`` and a block of rows, ``out_hw`` is the global size: a
+    repeat reads no other row and stays on the block; any other resize
+    runs on the map gathered whole and keeps the rank's rows of the
+    output where they split."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    if spatial is not None and spatial.is_split(x):
+        h, w = spatial.global_height(x), x.shape[3]
+        if mode == "nearest" and oh == h * (oh // h) and ow == w * (oh // h):
+            return upsample_nearest(x, oh // h)
+        y = interpolate(spatial.gather(x), (oh, ow), mode)
+        return spatial.own_rows(y) if oh % spatial.count == 0 else y
+    h, w = x.shape[2:]
     if mode == "nearest":
         if oh == h * (oh // h) and ow == w * (oh // h):
             return upsample_nearest(x, oh // h)
@@ -337,26 +404,48 @@ def interpolate(x: torch.Tensor, out_hw, mode: str = "nearest"
 
 
 def max_pool2d(x: torch.Tensor, kernel_size: int, stride: int,
-               pad_type: str) -> torch.Tensor:
-    if _is_same(pad_type):
-        # TF SAME pooling: asymmetric -inf padding
-        return F.max_pool2d(pad_same(x, kernel_size, stride,
-                                     value=float("-inf")),
-                            kernel_size, stride)
-    return F.max_pool2d(x, kernel_size, stride, padding=(kernel_size - 1) // 2)
+               pad_type: str, spatial: Optional[Shards] = None
+               ) -> torch.Tensor:
+    """Max pooling under ``pool_padding``'s pads, -inf filled (TF SAME:
+    asymmetric; '': (k-1)//2 a side); with ``spatial`` on a rank's block
+    of rows (``sharded_window``)."""
+    same = _is_same(pad_type)
+
+    def pool(x, rows_padded):
+        if rows_padded:
+            x = F.pad(x, (*_w_pads(x, kernel_size, stride, 1, same), 0, 0),
+                      value=float("-inf"))
+            return F.max_pool2d(x, kernel_size, stride)
+        if same:
+            # TF SAME pooling: asymmetric -inf padding
+            return F.max_pool2d(pad_same(x, kernel_size, stride,
+                                         value=float("-inf")),
+                                kernel_size, stride)
+        return F.max_pool2d(x, kernel_size, stride,
+                            padding=(kernel_size - 1) // 2)
+    return sharded_window(spatial, x, kernel_size, stride, 1, same, pool,
+                          float("-inf"))
 
 
 def avg_pool2d(x: torch.Tensor, kernel_size: int, stride: int,
-               pad_type: str) -> torch.Tensor:
+               pad_type: str, spatial: Optional[Shards] = None
+               ) -> torch.Tensor:
     """flax ``nn.avg_pool`` over ``pool_padding``'s pads: the padded zeros
     count in the divisor (the window size), under TF SAME (asymmetric
-    pads) and under '' ((k-1)//2 a side) alike."""
-    if _is_same(pad_type):
-        x = pad_same(x, kernel_size, stride)
-    else:
-        pad = (kernel_size - 1) // 2
-        x = F.pad(x, (pad, pad, pad, pad))
-    return F.avg_pool2d(x, kernel_size, stride, padding=0)
+    pads) and under '' ((k-1)//2 a side) alike; with ``spatial`` on a
+    rank's block of rows, zeros past the image's edges only."""
+    same = _is_same(pad_type)
+
+    def pool(x, rows_padded):
+        if rows_padded:
+            x = F.pad(x, (*_w_pads(x, kernel_size, stride, 1, same), 0, 0))
+        elif same:
+            x = pad_same(x, kernel_size, stride)
+        else:
+            pad = (kernel_size - 1) // 2
+            x = F.pad(x, (pad, pad, pad, pad))
+        return F.avg_pool2d(x, kernel_size, stride, padding=0)
+    return sharded_window(spatial, x, kernel_size, stride, 1, same, pool)
 
 
 class ResampleFeatureMap(nn.Module):
@@ -367,8 +456,10 @@ class ResampleFeatureMap(nn.Module):
     ``int(size / reduction_ratio)``; upsampling is ``interpolate`` by the
     integer scale (nearest by repeat, or ``bilinear``). The 1x1 conv runs
     when the channels change, before or after a downsample by
-    ``conv_after_downsample``.
+    ``conv_after_downsample``. With ``spatial`` the sizes are the maps'
+    global ones.
     """
+    spatial: Optional[Shards] = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  reduction_ratio: float = 1.0, pad_type: str = "",
@@ -396,11 +487,12 @@ class ResampleFeatureMap(nn.Module):
             stride = int(self.reduction_ratio)
             if self.downsample in ("max", "avg"):
                 pool = max_pool2d if self.downsample == "max" else avg_pool2d
-                x = pool(x, stride + 1, stride, self.pad_type)
+                x = pool(x, stride + 1, stride, self.pad_type, self.spatial)
             else:
-                x = interpolate(x, (int(x.shape[2] / self.reduction_ratio),
+                x = interpolate(x, (int(self._height(x)
+                                        / self.reduction_ratio),
                                     int(x.shape[3] / self.reduction_ratio)),
-                                self.downsample)
+                                self.downsample, self.spatial)
             if self.conv is not None and self.conv_after_downsample:
                 x = self.conv(x)
         else:
@@ -408,13 +500,21 @@ class ResampleFeatureMap(nn.Module):
                 x = self.conv(x)
             if self.reduction_ratio < 1:
                 scale = int(1 // self.reduction_ratio)
-                x = interpolate(x, (x.shape[2] * scale, x.shape[3] * scale),
-                                self.upsample)
+                x = interpolate(x, (self._height(x) * scale,
+                                    x.shape[3] * scale), self.upsample,
+                                self.spatial)
         return x
+
+    def _height(self, x: torch.Tensor) -> int:
+        return x.shape[2] if self.spatial is None else \
+            self.spatial.global_height(x)
 
 
 class SqueezeExcite(nn.Module):
-    """SE block: global mean -> reduce conv -> act -> expand conv -> gate."""
+    """SE block: global mean -> reduce conv -> act -> expand conv -> gate.
+    With ``spatial`` and a block of rows the mean is the rank's sum (f32
+    at least) summed over the spatial group, over the global H * W."""
+    spatial: Optional[Shards] = None
 
     def __init__(self, channels: int, reduced_channels: int,
                  act_type: str = "swish", gate_type: str = "sigmoid"):
@@ -425,7 +525,13 @@ class SqueezeExcite(nn.Module):
         self.gate = get_act(gate_type)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(2, 3), keepdim=True)
+        if self.spatial is not None and self.spatial.is_split(x):
+            acc = torch.promote_types(x.dtype, torch.float32)
+            total = self.spatial.sum(x.to(acc).sum(dim=(2, 3), keepdim=True))
+            s = (total / (self.spatial.global_height(x) * x.shape[3])
+                 ).to(x.dtype)
+        else:
+            s = x.mean(dim=(2, 3), keepdim=True)
         s = self.conv_expand(self.act(self.conv_reduce(s)))
         return x * self.gate(s)
 

@@ -5,10 +5,17 @@ The JAX package shards one global array over a device mesh and lets XLA
 insert the collectives. The port runs one process per card, started by
 ``torchrun`` (``python -m torch.distributed.run``), and each process holds
 its own rows of the global batch. A ``Mesh`` here is that group of
-processes: its size (the data axis), this process's rank and device, the
-group whose collectives run on the device (``nccl`` on the card, ``gloo``
-on the CPU or, asked for, for ranks that share one card) and a ``gloo``
-group for merges of host arrays.
+processes: its size, this process's rank and device, the group whose
+collectives run on the device (``nccl`` on the card, ``gloo`` on the CPU
+or, asked for, for ranks that share one card) and a ``gloo`` group for
+merges of host arrays.
+
+A 2-D mesh ``(D, S)`` with axes (``data``, spatial) lays the ranks out
+row-major, as JAX's ``np.array(devices).reshape(shape)`` does: rank r is
+data block ``r // S`` and spatial index ``r % S``. Beside the world group
+it holds this rank's spatial group (the ``S`` ranks of its data block,
+which split its images' rows: ``parallel/spatial.py``) and its data group
+(the ``D`` ranks of its spatial index).
 
 ``create_mesh`` joins the group ``torchrun`` describes in the environment
 (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
@@ -47,9 +54,14 @@ TIMEOUT = timedelta(minutes=10)
 class Mesh:
     """The processes of a data-parallel run, one device each.
 
-    ``group`` carries the device collectives (None for one process outside
-    ``torchrun``); ``host_group`` the host merges (``gloo``). ``owns_group``:
-    this mesh initialised the default group and ``close`` ends it."""
+    ``group`` carries the device collectives over every rank (None for
+    one process outside ``torchrun``); ``host_group`` the host merges
+    (``gloo``). ``owns_group``: this mesh initialised the default group
+    and ``close`` ends it. ``axis_sizes``: the mesh's shape, ``(size,)``
+    for a 1-D mesh. ``data_group``: the ranks of this rank's spatial
+    index, which hold different images (``group`` on a 1-D mesh);
+    ``spatial_group``: the ranks that split this rank's images' rows (a
+    2-D mesh only; the module docstring)."""
     size: int
     rank: int
     device: torch.device
@@ -57,10 +69,34 @@ class Mesh:
     group: Any = None
     host_group: Any = None
     owns_group: bool = False
+    axis_sizes: tuple = ()
+    spatial_group: Any = None
+    data_group: Any = None
+
+    def __post_init__(self):
+        if not self.axis_sizes:
+            self.axis_sizes = (self.size,)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: self.size}
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def spatial_size(self) -> int:
+        """Ranks that split one data block's rows (1 on a 1-D mesh)."""
+        return self.axis_sizes[1] if len(self.axis_sizes) > 1 else 1
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial_size
+
+    @property
+    def data_size(self) -> int:
+        return self.axis_sizes[0]
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial_size
 
     @property
     def distributed(self) -> bool:
@@ -76,6 +112,7 @@ class Mesh:
         if dist.is_initialized():
             dist.destroy_process_group()
         self.group = self.host_group = None
+        self.spatial_group = self.data_group = None
         _CURRENT = None
 
 
@@ -104,36 +141,50 @@ def _device(device, local_rank: int) -> torch.device:
     return device
 
 
+def _mesh_shape(shape: List[int], world: int) -> List[int]:
+    """``shape`` with its -1 (at most one) taking the rest of the launch's
+    ``world`` processes; raises unless the mesh has exactly ``world``."""
+    known = int(np.prod([s for s in shape if s != -1]))
+    if shape.count(-1) > 1 or min(shape) < -1 or 0 in shape:
+        raise ValueError(f"mesh {tuple(shape)}: sizes are positive, with "
+                         "at most one -1")
+    if -1 in shape and world % known == 0:
+        shape[shape.index(-1)] = world // known
+    want = int(np.prod([s for s in shape if s != -1]))
+    if -1 in shape or want != world:
+        raise ValueError(
+            f"a mesh of {tuple(shape)} processes needs a launch of "
+            f"{'a multiple of ' if -1 in shape else ''}{want} (this one has "
+            f"{world}): start one process a card with torchrun, "
+            f"{LAUNCH.replace('N', str(want))}")
+    return shape
+
+
 def create_mesh(mesh_shape: Sequence[int] = (-1,),
                 axis_names: Sequence[str] = ("data",),
                 device=None, backend: Optional[str] = None) -> Mesh:
-    """The data-parallel mesh of this process: -1 is every process of the
-    launch, any other size must equal it. Inside ``torchrun`` it joins (or
+    """The mesh of this process, 1-D (data) or 2-D (data, spatial): -1 on
+    one axis takes the rest of the launch's processes, and the sizes must
+    multiply to the launch's count. Inside ``torchrun`` it joins (or
     initialises) the process group over ``backend`` (``nccl`` for a card,
     ``gloo`` for the CPU when None; ``gloo`` on the card lets ranks share
-    one card) and makes a ``gloo`` group for host merges. ``device``: see
-    ``_device``. Only a 1-D mesh is ported; the (data, spatial) image-H
-    leg raises."""
+    one card), makes a ``gloo`` group for host merges and, for a 2-D mesh,
+    every rank's spatial and data groups (each rank makes every group:
+    ``new_group`` is collective). ``device``: see ``_device``."""
     global _CURRENT
-    shape = list(mesh_shape)
-    if len(shape) != 1 or len(axis_names) != 1:
-        raise NotImplementedError(
-            f"mesh {tuple(shape)} {tuple(axis_names)}: only a 1-D data "
-            "mesh is ported; the (data, spatial) image-H leg waits in "
-            "ROADMAP Queue 1 item 12")
+    if len(mesh_shape) not in (1, 2) or len(axis_names) != len(mesh_shape):
+        raise ValueError(f"mesh {tuple(mesh_shape)} {tuple(axis_names)}: "
+                         "a 1-D (data) or 2-D (data, spatial) mesh, one "
+                         "name an axis")
     launched = _launched() or dist.is_initialized()
     world = int(os.environ.get("WORLD_SIZE", 1)) if not dist.is_initialized() \
         else dist.get_world_size()
-    want = world if shape[0] == -1 else shape[0]
-    if want != world:
-        raise ValueError(
-            f"a mesh of {want} processes needs a launch of {want} "
-            f"(this one has {world}): start one process a card with "
-            f"torchrun, {LAUNCH.replace('N', str(want))}")
+    shape = tuple(_mesh_shape(list(mesh_shape), world))
     local_rank = int(os.environ.get("LOCAL_RANK", 0))
     dev = _device(device, local_rank)
     if not launched:
-        mesh = Mesh(size=1, rank=0, device=dev, axis_names=tuple(axis_names))
+        mesh = Mesh(size=1, rank=0, device=dev, axis_names=tuple(axis_names),
+                    axis_sizes=shape)
         _CURRENT = mesh
         return mesh
     if dev.type == "cuda":
@@ -148,26 +199,42 @@ def create_mesh(mesh_shape: Sequence[int] = (-1,),
     group = dist.group.WORLD
     host = group if dist.get_backend() == "gloo" else \
         dist.new_group(backend="gloo", timeout=TIMEOUT)
-    mesh = Mesh(size=world, rank=dist.get_rank(), device=dev,
+    rank = dist.get_rank()
+    spatial, data = None, group
+    if len(shape) == 2:
+        blocks, split = shape
+        for b in range(blocks):
+            g = dist.new_group([b * split + i for i in range(split)],
+                               timeout=TIMEOUT)
+            spatial = g if rank // split == b else spatial
+        for i in range(split):
+            g = dist.new_group([b * split + i for b in range(blocks)],
+                               timeout=TIMEOUT)
+            data = g if rank % split == i else data
+    mesh = Mesh(size=world, rank=rank, device=dev,
                 axis_names=tuple(axis_names), group=group, host_group=host,
-                owns_group=owns)
+                owns_group=owns, axis_sizes=shape, spatial_group=spatial,
+                data_group=data)
     _CURRENT = mesh
     return mesh
 
 
 def data_sharding(mesh: Mesh, batch_size: int) -> slice:
     """This rank's rows of a global batch of ``batch_size`` (the JAX
-    ``P('data')`` placement: rank r holds the r-th block)."""
-    if batch_size % mesh.size:
+    ``P('data')`` placement: data block b holds the b-th block of rows,
+    the same on each rank of its spatial group)."""
+    if batch_size % mesh.data_size:
         raise ValueError(f"batch {batch_size} does not divide over "
-                         f"{mesh.size} processes")
-    per = batch_size // mesh.size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+                         f"{mesh.data_size} data blocks")
+    per = batch_size // mesh.data_size
+    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
 
 
 def shard_batch(mesh: Mesh, batch):
     """This rank's rows of a global batch (a tensor, an array, or a dict of
-    them), on the mesh's device when a tensor."""
+    them), on the mesh's device when a tensor: rows over the data axis
+    only, the full images (JAX ``shard_batch``'s ``P('data')``; the
+    spatial train step takes its own block of each image's rows)."""
     if isinstance(batch, dict):
         return {k: shard_batch(mesh, v) for k, v in batch.items()}
     rows = batch[data_sharding(mesh, batch.shape[0])]

@@ -27,7 +27,7 @@ is the number of processes (-1: all of the launch); ``--batch-size`` is
 each process's, as in the JAX multi-host loaders. Each rank reads its
 stride of the samples, labels and trains on its rows (the global
 BatchNorm moments, positives and summed gradients:
-``train_state.data_parallel_train_step``), evaluates its val rows, and
+``train_state.mesh_train_step``), evaluates its val rows, and
 the val loss and detections are merged so that every rank logs and
 decides alike; rank 0 writes the checkpoints. Each rank runs on
 ``cuda:LOCAL_RANK`` unless ``--device`` names a device (``--device cuda:0

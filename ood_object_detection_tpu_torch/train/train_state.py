@@ -35,8 +35,22 @@ does. The train-mode BatchNorm moments are the global batch's
 ranks before the loss, so each rank's loss is its share of the global
 loss; the gradients are summed (one all-reduce of a flat buffer), then
 clipped by their global norm, and every rank steps the optimizer and the
-EMA alike. The image-H sharded leg is not ported (``create_mesh`` raises
-for a 2-D mesh).
+EMA alike.
+
+The image-H leg (``make_train_step(mesh=create_mesh((D, S), ("data",
+"spatial")), spatial_axis="spatial")``): the ``S`` ranks of a data block
+hold its full images and split their rows (``parallel/spatial.py``).
+Each rank labels its block's images over all anchors (K3 / K4, so that
+each row's force-match spans the image), sums the positives over its
+data group (the ``S`` ranks of a block share them), runs the model on its
+rows of the images, and takes the loss of the anchors on its rows: a
+level whose maps split keeps the rank's rows of anchors (the anchors are
+level-major, then row, column and anchor config, so they are one range a
+level); a level computed whole (too short to split) counts on spatial
+index 0 alone. Losses and gradients are summed over every rank, the norm
+moments are the whole mesh's, and the update is the data-parallel one.
+One step, ``mesh_train_step``, runs both meshes: on a 1-D mesh the data
+group is every rank and each rank computes all the rows of its images.
 """
 from __future__ import annotations
 
@@ -56,6 +70,7 @@ from ..ops.anchors import Anchors
 from ..ops.losses import detection_loss_nhwc
 from ..ops.target_assigner import LabelResult, batch_label_anchors
 from ..parallel.mesh import Mesh, all_reduce_sum, synced_batch_norms
+from ..parallel.spatial import spatially_sharded
 from ..utils.profiling import annotate
 
 LrSchedule = Union[float, Callable[[int], float]]
@@ -330,26 +345,81 @@ def sum_gradients(params, mesh: Mesh) -> None:
         offset += n
 
 
-def data_parallel_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
-                             anchor_boxes: torch.Tensor,
-                             train_config: TrainConfig, mesh: Mesh,
-                             state: TrainState,
-                             batch: Dict[str, torch.Tensor],
-                             freeze_bn: str = "none"
-                             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """``detection_train_step`` on this rank's rows of the global batch:
-    the same update on every rank, the global metrics."""
+def _level_anchor_ranges(cls_out, anchors: Anchors, index: int):
+    """For each level's local class output [B, h, W, A*C]: (the range of
+    flat anchor indices it holds, whether the level is whole), the rank's
+    rows of a split level, all of a whole one."""
+    ranges, offset = [], 0
+    for lvl, (height, width) in zip(
+            cls_out, anchors.feat_sizes[anchors.min_level:]):
+        per_row = width * len(anchors.aspect_ratios) * anchors.num_scales
+        rows = lvl.shape[1]
+        whole = rows == height
+        start = offset if whole else offset + index * rows * per_row
+        ranges.append((slice(start, start + rows * per_row), whole))
+        offset += height * per_row
+    return ranges
+
+
+def spatial_loss(cfg, cls_out, box_out, labels: LabelResult,
+                 anchors: Anchors, index: int, remat_cls: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """This rank's share of the (total, class, box) loss over its rows of
+    the levels' outputs: the anchors of its rows of each split level,
+    and the anchors of each whole level on spatial index 0 (weight 0 on
+    the others, so that their backward still runs), against the global
+    positives of ``labels``. Unsplit (every level whole, index 0) it is
+    ``detection_loss`` of every anchor."""
+    ranges = _level_anchor_ranges(cls_out, anchors, index)
+    parts = []
+    for whole in (False, True):
+        keep = [i for i, (_, w) in enumerate(ranges) if w == whole]
+        if not keep:
+            continue
+        part = labels if len(keep) == len(ranges) and whole else \
+            dataclasses.replace(
+                labels,
+                cls_targets=torch.cat([labels.cls_targets[:, ranges[i][0]]
+                                       for i in keep], dim=1),
+                box_targets=torch.cat([labels.box_targets[:, ranges[i][0]]
+                                       for i in keep], dim=1))
+        losses = detection_loss(cfg, [cls_out[i] for i in keep],
+                                [box_out[i] for i in keep], part,
+                                remat_cls=remat_cls)
+        if whole and index != 0:
+            losses = [loss * 0.0 for loss in losses]
+        parts.append(losses)
+    totals = parts[0]
+    for losses in parts[1:]:
+        totals = [a + b for a, b in zip(totals, losses)]
+    return tuple(totals)
+
+
+def mesh_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
+                    anchors: Anchors, anchor_boxes: torch.Tensor,
+                    train_config: TrainConfig, mesh: Mesh,
+                    state: TrainState, batch: Dict[str, torch.Tensor],
+                    freeze_bn: str = "none"
+                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """``detection_train_step`` on a launched mesh: ``batch`` is this
+    rank's data block (``shard_batch``), full images, of which the rank
+    computes its rows on a 2-D mesh and all on a 1-D one (the module
+    docstring). The same update on every rank, the global metrics."""
     labels = batch_label_anchors(anchor_boxes, batch["bbox"], batch["cls"])
     positives = all_reduce_sum(torch.sum(labels.num_positives).float()
-                               .reshape(1), mesh.group)
+                               .reshape(1), mesh.data_group)
     labels = dataclasses.replace(labels, num_positives=positives)
     model.train_bn(freeze_bn)
     image = batch["image"]
-    with synced_batch_norms(model, mesh):
-        cls_out, box_out = model(image, drop_path_generator(
+    index = mesh.spatial_index
+    rows = image.shape[1] // mesh.spatial_size
+    local = image[:, index * rows:(index + 1) * rows]
+    with synced_batch_norms(model, mesh), \
+            spatially_sharded(model, mesh, image.shape[1:3]):
+        cls_out, box_out = model(local, drop_path_generator(
             model, state.step, image.device))
-        total, cls_loss, box_loss = detection_loss(
-            model.config, cls_out, box_out, labels,
+        total, cls_loss, box_loss = spatial_loss(
+            model.config, cls_out, box_out, labels, anchors, index,
             remat_cls=train_config.remat_cls_loss)
         tx.zero_grad()
         total.backward()
@@ -370,21 +440,31 @@ def data_parallel_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
 
 def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
                     anchors: Anchors, train_config: TrainConfig,
-                    mesh: Optional[Mesh] = None, freeze_bn: str = "none"):
+                    mesh: Optional[Mesh] = None, freeze_bn: str = "none",
+                    spatial_axis: Optional[str] = None):
     """The train step as ``step(state, batch) -> (state, metrics)`` on the
     model's device. With a ``mesh`` of a launched group
     (``parallel.create_mesh`` under torchrun) ``batch`` is this rank's
-    rows and the step is ``data_parallel_train_step``; a mesh of one
-    process outside torchrun is the one-process step."""
+    rows and the step is ``mesh_train_step``; a 2-D mesh takes
+    ``spatial_axis`` (its second axis' name, the JAX keyword), the axis
+    the images' rows split over. A mesh of one process outside torchrun
+    is the one-process step."""
     model = unwrap_bench(model)
     device = next(model.parameters()).device
     anchor_boxes = torch.from_numpy(anchors.boxes).to(device)
+    if mesh is not None and (spatial_axis is not None
+                             or len(mesh.axis_names) > 1):
+        if len(mesh.axis_names) != 2 or mesh.axis_names[1] != spatial_axis:
+            raise ValueError(
+                f"spatial_axis {spatial_axis!r} on a mesh of axes "
+                f"{mesh.axis_names}: the image-H leg takes a 2-D mesh "
+                "whose second axis is spatial_axis")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if mesh is not None and mesh.distributed:
-            return data_parallel_train_step(
-                model, tx, anchor_boxes, train_config, mesh, state, batch,
-                freeze_bn=freeze_bn)
+            return mesh_train_step(model, tx, anchors, anchor_boxes,
+                                   train_config, mesh, state, batch,
+                                   freeze_bn=freeze_bn)
         return detection_train_step(model, tx, anchor_boxes, train_config,
                                     state, batch, freeze_bn=freeze_bn)
     return step

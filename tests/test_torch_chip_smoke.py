@@ -397,6 +397,29 @@ def test_data_parallel_drives_run_on_the_cpu(tmp_path):
     assert all(r["builds"] >= 4 for r in mranks)
 
 
+def test_spatial_drive_runs_on_the_cpu(tmp_path):
+    """Phase 16's drive on the CPU: two gloo ranks launched by torchrun as
+    on the card, splitting the rows of a one-cell, one-repeat D0 at 128 px
+    as a (1, 2) mesh, with every check of the phase that does not need
+    the card: step 1 of the spatial step against one process on the same
+    4 images (phase 14 (a)'s bars), a further timed step with finite
+    metrics, the exchanges counted, and the profiled step's ``spatial_*``
+    spans seeing every one of them."""
+    with torch.enable_grad():
+        ranks = chip_smoke.spatial_path(
+            str(tmp_path), device="cpu", img=128, classes=4, batch=4,
+            overrides={"fpn_cell_repeats": 1, "box_class_repeats": 1},
+            steps=1)
+    for r in ranks:
+        assert r["shape"] == {"data": 1, "spatial": 2}
+        ex = r["step1_exchanges"]
+        assert ex["halo"] > 50 and ex["gather"] > 0 and ex["se_sum"] > 0
+        assert r["exchanges"] == ex
+        assert (r["window"]["halos"], r["window"]["gathers"],
+                r["window"]["se_sums"]) == (ex["halo"], ex["gather"],
+                                            ex["se_sum"])
+
+
 def test_stage_seconds_splits_a_timed_run():
     """Phase 15's stage reader: each stage ends at the first later line
     its predicate accepts; a stage whose line never comes is None and its

@@ -66,6 +66,7 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.models.anchor_net",
     "ood_object_detection_tpu_torch.parallel",
     "ood_object_detection_tpu_torch.parallel.mesh",
+    "ood_object_detection_tpu_torch.parallel.spatial",
     "ood_object_detection_tpu_torch.ops",
     "ood_object_detection_tpu_torch.ops.nms",
     "ood_object_detection_tpu_torch.ops.boxes",

@@ -52,11 +52,13 @@ mesh = par.create_mesh((-1,), ("data",), device="cpu")
 r = mesh.rank
 out = {"rank": r, "size": mesh.size, "shape": mesh.shape,
        "main": par.is_main_process(), "distributed": mesh.distributed}
-for bad in ((3,), (2, 1)):
+for bad in ((3,), (2, 2)):
     try:
         par.create_mesh(bad, ("data", "spatial")[:len(bad)], device="cpu")
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         out[f"refused_{len(bad)}d"] = f"{type(e).__name__}: {e}"
+out["shape_2x1"] = par.create_mesh((2, 1), ("data", "spatial"),
+                                   device="cpu").shape
 
 g = np.arange(16 * 4 * 4 * 3, dtype=np.float32).reshape(16, 4, 4, 3)
 placed = par.shard_batch(mesh, {"image": torch.from_numpy(g),
@@ -160,7 +162,10 @@ def test_create_mesh(ranks):
     for o in out:
         assert o["refused_1d"].startswith("ValueError") \
             and "torchrun" in o["refused_1d"]
-        assert o["refused_2d"].startswith("NotImplementedError")
+        # a 2-D (data, spatial) mesh is made when its shape fits the launch
+        assert o["shape_2x1"] == {"data": 2, "spatial": 1}
+        assert o["refused_2d"].startswith("ValueError") \
+            and "torchrun" in o["refused_2d"]
 
 
 def test_create_mesh_outside_a_launch():
