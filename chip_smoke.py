@@ -177,7 +177,9 @@ Phases, each synchronised so that a fault shows where it happened:
      meta parameters equal on both ranks, K3 / K4 once a build, and one
      update of ``make_sharded_meta_step`` on 4 phase-8 episodes (two a
      rank) against ``train_episode``'s sequential accumulation to rtol
-     1e-5. (e) only where the machine has two cards or more: (a) with
+     1e-5; (a)-(d) run beside phase 15's two example processes, so their
+     timed windows share the host and the card with them. (e) only where
+     the machine has two cards or more: (a) with
      phase 3's kernel cases on every rank's own card, (c) and (d) over
      NCCL with one rank a card, and the train step's images/s at
      DP_RATE_BATCH a card with 1, 2 and all cards; with one card it
@@ -186,7 +188,10 @@ Phases, each synchronised so that a fault shows where it happened:
      ``examples.selection_quality.main --out <file>`` at their defaults
      (D0 at full width, 256 px, batch 16, 500 steps, f32), the two at
      once, each in a process of its own (``chip_smoke.py --example
-     <json>``, example_main): each JSON line printed with its time, the
+     <json>``, example_main) with torch's deterministic algorithms, so
+     that a run trains the same weights every time; the processes start
+     before phase 14 and run beside its torchrun ranks: each JSON line
+     printed with its time, the
      wall seconds of each stage and the kernels' launches; K3 / K4 once a
      train step and K1 once a predict call (once a method and val batch
      in selection_quality), K2 logged (f32 takes no packed route); finite
@@ -210,9 +215,28 @@ Phases, each synchronised so that a fault shows where it happened:
      a card, then one step of tf_efficientdet_d7x at 1536 px, f32, one
      image, on (1, 4) (spatial_d7x: finite losses, K3 / K4 once, each
      card's peak memory); with fewer cards it logs that and goes on.
-Phases 10, 11, 13, 14 and 15 run with PyTorch's default cuDNN TF32 (the
-earlier phases turn it off), as a user runs the CLIs; phase 14 turns it
-off for its equality step, phase 16 for all of it.
+ 17. the benchmark entry point (bench_path): (a) ``run_bench.main()`` at
+     its defaults (D0@512, 90 classes, bf16, batch 128) with BENCH_ITERS
+     timed calls a row: the train row, the exact top-k row and the
+     north-star row last, in the JAX bench's names, each finite and
+     positive; K3 / K4 once a timed train step, K2 and K1 once a call of
+     the exact row and of the north-star row; (b)
+     ``BENCH_MODE=meta`` at its defaults (bf16, 640 / 256 px;
+     BENCH_META_ITERS timed calls a run: K3 / K4 once, at the episode's
+     build) and ``BENCH_MODE=loader`` at batch 128
+     (PIL where the native core does not load); (c) ``python -m
+     ood_object_detection_tpu_torch.run_bench`` as a subprocess with
+     BENCH_CLI_ENV; (d) the north-star and train rows no faster than
+     BENCH_ROW_MARGIN x 128 images over phase 5's / phase 7's B = 128
+     busy seconds (a faster row timed the enqueue); (e)
+     ``examples.train_roofline`` (D0@512, batch 64, nothing frozen) with
+     a profiler trace, ``examples.profile_kernel_stats`` over the trace
+     and ``examples.run_roofline_sweep --only predict`` (D4@1024, batch
+     16, a subprocess), every roofline share in (0, 1]. Each row is logged
+     with the card's name and power limit, never as a bare JSON line.
+Phases 10, 11, 13, 14, 15 and 17 run with PyTorch's default cuDNN TF32
+(the earlier phases turn it off), as a user runs the CLIs; phase 14
+turns it off for its equality step, phase 16 for all of it.
 Phase 3 also holds K1 at the meta path's [31, 5000] -> 30 (hard, 0.3),
 K3 -> K4 at 31 images x 76,725 anchors (6 images all padding) and an
 episode's query labels through the kernels against the plain ones, K1
@@ -259,7 +283,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
-from ood_object_detection_tpu_torch import export, validate
+from ood_object_detection_tpu_torch import export, run_bench, validate
 from ood_object_detection_tpu_torch.data import (NativeEvalLoader,
                                                  PilEvalLoader,
                                                  SyntheticDetectionDataset,
@@ -270,7 +294,10 @@ from ood_object_detection_tpu_torch.data.episodic import (
     EpisodeBuilder, EpisodicDataset, SyntheticEpisodeSource)
 from ood_object_detection_tpu_torch.examples import (deploy_infer,
                                                      open_set_demo,
-                                                     selection_quality)
+                                                     profile_kernel_stats,
+                                                     run_roofline_sweep,
+                                                     selection_quality,
+                                                     train_roofline)
 from ood_object_detection_tpu_torch.evaluation import (CocoEvaluator,
                                                        PascalEvaluator,
                                                        native)
@@ -316,9 +343,9 @@ BATCH = 16
 TRAIN_BATCH = 32
 MAX_ROWS = 100       # padded ground-truth rows (max_instances_per_image)
 IMG = 512
-WINDOW_S = 2.5       # end-to-end timing window at each batch
-PROFILE_REPS = 10    # calls in each profiler window
-TRAIN_PROFILE_REPS = 3
+WINDOW_S = 1.5       # end-to-end timing window at each batch
+PROFILE_REPS = 4     # calls in each profiler window
+TRAIN_PROFILE_REPS = 2
 # calls in the labeling stage's profiler window: a window of 3 calls (under
 # a millisecond) kept a quarter of the stage's device operations, or none
 LABEL_PROFILE_REPS = 30
@@ -339,7 +366,7 @@ LABEL_MAX_OPS = 6
 # calls in a meta profiler window
 META_EPISODES = (4, 8)
 META_CATS = 6
-META_PROFILE_REPS = 3
+META_PROFILE_REPS = 2
 # the validate path: images of the COCO-layout split (a partial last batch
 # of 5 at batch 8), COCO's usual image sizes (h, w), its categories
 VAL_IMAGES = 61
@@ -392,7 +419,10 @@ DP_RATE_STEPS = 6
 DP_PROFILE_STEPS = 2
 # the examples (phase 15): the bars of the card run, approx's overlap with
 # exact (the JAX run recorded an identical detection set) and exact's
-# PASCAL mAP@0.5 (the card-trained detector learns)
+# PASCAL mAP@0.5 (the card-trained detector learns; the example processes
+# run deterministic algorithms: with cuDNN's and the atomic scatters'
+# free summation order, 500 steps of the same seed ended anywhere from
+# 0.42 to 0.88 between runs)
 EXAMPLE_MIN_OVERLAP = 0.99
 EXAMPLE_MIN_PASCAL = 0.6
 # seconds the two example processes may take together (each took 117-121
@@ -403,6 +433,17 @@ EXAMPLE_TIMEOUT = 600
 SPATIAL_BATCH = 8
 SPATIAL_STEPS = 3
 D7X_IMG = 1536
+# phase 17: the bench's timed calls a row (20, its default; 5 for the
+# meta row), the loader's batches, the CLI's environment, the roofline
+# rows' flags and calls
+BENCH_ITERS = 20
+BENCH_META_ITERS = 5
+BENCH_LOADER_ITERS = 2
+BENCH_CLI_ENV = {"EXTRA": "0", "BATCH": "16", "ITERS": "5"}
+BENCH_ROW_MARGIN = 1.05
+ROOFLINE_ITERS = 5
+ROOFLINE_ARGS = ("--batch", "64", "--freeze-bn", "none", "--iters",
+                 str(ROOFLINE_ITERS))
 CARD = "not read"
 # CUDA runtime calls that put an operation on the card (profiler names)
 RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
@@ -868,7 +909,8 @@ def train_throughput(bench, state, step, tx, tcfg, batch_size, gen):
     """Train steps over a WINDOW_S window at ``batch_size`` (each ending in
     a synchronise): images/s, the median / least / most step time, the
     peak device memory; then where a step's time goes (profile_window of
-    the whole step and of its stages) and its top device kernels."""
+    the whole step and of its stages) and its top device kernels.
+    Returns the step's profile_window numbers."""
     batch = train_batch(batch_size, gen)
     torch.cuda.reset_peak_memory_stats()
     step(state, batch)
@@ -937,11 +979,13 @@ def train_throughput(bench, state, step, tx, tcfg, batch_size, gen):
                     f"{len(ms) / reps} a step, "
                     f"{sum(ms) / len(ms):.4f} ms each, {kname}")
         if name == "step":
+            step_numbers = numbers
             for e in device:
                 top[e.name[:80]] += (e.time_range.end - e.time_range.start
                                      ) / 1e3 / TRAIN_PROFILE_REPS
     for name, ms in top.most_common(12):
         log(f"[7] top kernel train B={batch_size}: {ms:.4f} ms {name}")
+    return step_numbers
 
 
 def meta_kernel_cases(gen):
@@ -2760,8 +2804,9 @@ def main(argv=()):
     # 5. times: the kernels at the main path's shapes (batch 16) and at
     #    batch 128, end to end at both; card as printed above
     t = kernel_times(cand_k, cls, info)
+    busy = {}
     for batch in (BATCH, 128):
-        throughput(bench, batch, gen)
+        busy["predict"] = throughput(bench, batch, gen)["busy_ms"] / 1e3
     sync()
     del bench, cls, box, requests, cand_k
     torch.cuda.empty_cache()
@@ -2776,7 +2821,8 @@ def main(argv=()):
             if batch == TRAIN_BATCH:
                 t.update(t_label)
         for batch in (TRAIN_BATCH, 128):
-            train_throughput(*train[:5], batch, gen)
+            busy["train"] = train_throughput(*train[:5], batch,
+                                             gen)["busy_ms"] / 1e3
     sync()
     del train
     torch.cuda.empty_cache()
@@ -2885,21 +2931,29 @@ def main(argv=()):
 
     # 14. data parallelism: the pretrain CLI, validate and the meta driver
     #     as ranks of torchrun (two on this card over gloo, one over NCCL),
-    #     each held against one process; across cards where there are
+    #     each held against one process; across cards where there are;
+    # 15. the two examples at their defaults (D0, 256 px, 500 steps, f32),
+    #     their processes started before phase 14 and run beside it (the
+    #     script's time limit: each phase waits on its own processes)
     t0 = time.time()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        data_parallel(tmp, validate_metrics=val_metrics)
-    log(f"[14] phase 14 took {time.time() - t0:.1f} s")
-
-    # 15. the two examples at their defaults (D0, 256 px, 500 steps, f32)
-    t0 = time.time()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
-        examples_path(tmp)
+    with tempfile.TemporaryDirectory() as tmp15:
+        started = start_examples(tmp15, examples_argvs(tmp15))
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                data_parallel(tmp, validate_metrics=val_metrics)
+        except BaseException:
+            stop_examples(started)
+            raise
+        log(f"[14] phase 14 took {time.time() - t0:.1f} s (beside phase "
+            f"15's two example processes)")
+        t14 = time.time()
+        with torch.enable_grad():
+            examples_path(tmp15, started=started)
     example_kernels()
     sync()
-    log(f"[15] phase 15 took {time.time() - t0:.1f} s")
+    log(f"[15] phase 15 took {time.time() - t0:.1f} s from its start "
+        f"beside phase 14, {time.time() - t14:.1f} s after it")
 
     # 16. the spatial leg: two gloo ranks on this card split D0@512's rows
     #     as a (1, 2) mesh, against one process; across cards where there
@@ -2909,6 +2963,17 @@ def main(argv=()):
     with tempfile.TemporaryDirectory() as tmp:
         spatial_path(tmp)
     log(f"[16] phase 16 took {time.time() - t0:.1f} s")
+
+    # 17. the benchmark entry point: run_bench's default run, meta and
+    #     loader modes and CLI, its rows held under the card's busy time
+    #     of phases 5 and 7; the roofline tools
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True         # as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_path(tmp, busy=busy)
+    sync()
+    log(f"[17] phase 17 took {time.time() - t0:.1f} s")
 
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
@@ -3126,7 +3191,8 @@ def throughput(bench, batch, gen, img=IMG, tag="[5]"):
     window, and the median, least and most request time. Then a profiler
     window of the whole request and of each stage alone (profile_window),
     and the kernels with the most device time in a request. At batches
-    other than the main path's, also the kernels' times on this batch."""
+    other than the main path's, also the kernels' times on this batch.
+    Returns the request's profile_window numbers."""
     imgs, hw = canvases(batch, gen, img=img)
     num_classes = bench.config.num_classes
 
@@ -3169,6 +3235,7 @@ def throughput(bench, batch, gen, img=IMG, tag="[5]"):
         log(f"{tag} profile B={batch} {name}: " + ", ".join(
             f"{k} {v}" for k, v in numbers.items()))
         if name == "request":
+            request = numbers
             for e in device:
                 top[e.name[:80]] += (e.time_range.end - e.time_range.start
                                      ) / 1e3 / PROFILE_REPS
@@ -3178,6 +3245,7 @@ def throughput(bench, batch, gen, img=IMG, tag="[5]"):
         kernel_times(pp.select_candidates(cls, box, bench.anchors,
                                           num_classes, 5000, "energy"), cls,
                      (pre["img_scale"], pre["img_size"]), tag=tag)
+    return request
 
 
 # ---------------------------------------------------------------------------
@@ -4161,12 +4229,15 @@ def example_main(spec):
     """One example of phase 15 in its own process (``chip_smoke.py
     --example <spec>``, started by ``examples_path``): its ``main`` on
     ``spec['argv']`` with the printed lines timed, the kernels' launch
-    counts from 0, with the starting process's CPU threads; the result in
-    ``{out}/{name}.result.json``."""
+    counts from 0, with the starting process's CPU threads and torch's
+    deterministic algorithms (``run_examples`` sets the cuBLAS workspace
+    they need); the result in ``{out}/{name}.result.json``."""
     spec = json.loads(spec)
     torch.set_num_threads(spec["threads"])
     torch.backends.cudnn.allow_tf32 = True         # as phases 10-14
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
     reset_launches()
     with torch.enable_grad():
         result, lines, wall = run_timed(EXAMPLES[spec["name"]].main,
@@ -4178,12 +4249,13 @@ def example_main(spec):
     return 0
 
 
-def run_examples(tmp, argvs, timeout=EXAMPLE_TIMEOUT):
-    """Every example of ``argvs`` ({name: argv}) at once, each in its own
-    process (``example_main``); waits for all, stops any still running on
-    a failure. Returns {name: its result file's content}, each printed
-    line logged with its time."""
+def start_examples(tmp, argvs):
+    """Every example of ``argvs`` ({name: argv}) started at once, each in
+    its own process (``example_main``). Returns {name: its process}."""
     procs = {}
+    # deterministic cuBLAS calls need a fixed workspace, set before the
+    # process's first one
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     try:
         for name, argv in argvs.items():
             spec = json.dumps(dict(name=name, argv=list(argv), out=tmp,
@@ -4191,7 +4263,30 @@ def run_examples(tmp, argvs, timeout=EXAMPLE_TIMEOUT):
             with open(os.path.join(tmp, f"{name}.err"), "w") as err:
                 procs[name] = subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--example",
-                     spec], stdout=err, stderr=subprocess.STDOUT)
+                     spec], stdout=err, stderr=subprocess.STDOUT, env=env)
+    except BaseException:
+        stop_examples(procs)
+        raise
+    return procs
+
+
+def stop_examples(procs):
+    """Kills every process of ``procs`` still running."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_examples(tmp, argvs, timeout=EXAMPLE_TIMEOUT, procs=None):
+    """Every example of ``argvs`` ({name: argv}) at once, each in its own
+    process (``start_examples``, unless ``procs`` holds the processes it
+    started on these arguments); waits for all, stops any still running on
+    a failure. Returns {name: its result file's content}, each printed
+    line logged with its time."""
+    procs = procs or {}
+    try:
+        procs = procs or start_examples(tmp, argvs)
         deadline = time.time() + timeout
         for name, proc in procs.items():
             code = proc.wait(timeout=max(deadline - time.time(), 1.0))
@@ -4201,10 +4296,7 @@ def run_examples(tmp, argvs, timeout=EXAMPLE_TIMEOUT):
                     log(f"[15] {name}: {line}")
                 check(False, f"[15] {name} exited {code}")
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_examples(procs)
     out = {}
     for name in argvs:
         with open(os.path.join(tmp, f"{name}.result.json")) as f:
@@ -4272,13 +4364,24 @@ def example_kernels():
     return t
 
 
+def examples_argvs(tmp, device="cuda", open_args=(), select_args=()):
+    """{example: argv} of phase 15: ``open_args`` / ``select_args`` on
+    the device, selection_quality's ``--out`` in ``tmp``."""
+    dev = [] if device == "cuda" else ["--device", device]
+    path = os.path.join(tmp, "selection_quality_out.json")
+    return {"open_set_demo": list(open_args) + dev,
+            "selection_quality": ["--out", path] + list(select_args) + dev}
+
+
 def examples_path(tmp, device="cuda", open_args=(), select_args=(),
                   min_overlap=EXAMPLE_MIN_OVERLAP,
-                  min_pascal=EXAMPLE_MIN_PASCAL):
+                  min_pascal=EXAMPLE_MIN_PASCAL, started=None):
     """Phase 15: ``examples.open_set_demo.main`` and
     ``examples.selection_quality.main --out`` at their defaults (or with
     ``open_args`` / ``select_args``), the two at once in two processes
-    (``run_examples``), each result line printed with the wall seconds of
+    (``run_examples``; ``started`` holds them where ``start_examples``
+    started them on ``examples_argvs``' arguments earlier, as ``main``
+    does beside phase 14), each result line printed with the wall seconds of
     each stage and the kernels' launches. Fails on a non-finite AUROC,
     FPR95 or mAP, on ``approx``'s overlap with ``exact`` below
     ``min_overlap``, on ``exact``'s PASCAL mAP@0.5 below ``min_pascal``,
@@ -4286,12 +4389,10 @@ def examples_path(tmp, device="cuda", open_args=(), select_args=(),
     unless K3 and K4 launched once a train step and K1 once a predict call
     (K2 is logged: in f32 no selection takes its packed route). Returns
     {example: (result, stages, launches)}."""
-    dev = [] if device == "cuda" else ["--device", device]
     on_card = torch.device(device).type == "cuda"
     path = os.path.join(tmp, "selection_quality_out.json")
-    argvs = {"open_set_demo": list(open_args) + dev,
-             "selection_quality": ["--out", path] + list(select_args) + dev}
-    runs = run_examples(tmp, argvs)
+    argvs = examples_argvs(tmp, device, open_args, select_args)
+    runs = run_examples(tmp, argvs, procs=started)
     out = {}
 
     run = runs["open_set_demo"]
@@ -4318,7 +4419,8 @@ def examples_path(tmp, device="cuda", open_args=(), select_args=(),
               f"({steps}): {launches}")
         check(launches["K1"] == 2, f"[15] open_set_demo: K1 must launch "
               f"once a predict call (2): {launches}")
-    log(f"[15] [{CARD}] open_set_demo (beside selection_quality): "
+    beside = " and phase 14" if started else ""
+    log(f"[15] [{CARD}] open_set_demo (beside selection_quality{beside}): "
         f"{wall:.1f} s, stages (s) {stages}, train "
         f"{1e3 * (stages['train'] or 0) / steps:.1f} ms a step; launches "
         f"{launches}")
@@ -4357,13 +4459,238 @@ def examples_path(tmp, device="cuda", open_args=(), select_args=(),
         check(launches["K1"] == len(result) * val_batches,
               f"[15] selection_quality: K1 must launch once a method and "
               f"val batch ({len(result)} x {val_batches}): {launches}")
-    log(f"[15] [{CARD}] selection_quality (beside open_set_demo): "
+    log(f"[15] [{CARD}] selection_quality (beside open_set_demo{beside}): "
         f"{wall:.1f} s, stages (s) {stages}, train "
         f"{1e3 * (stages['train'] or 0) / steps:.1f} ms a step; launches "
         f"{launches}")
     out["selection_quality"] = (result, stages, launches)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# 17. the benchmark entry point (run_bench) and the roofline tools
+
+@contextlib.contextmanager
+def bench_env(**values):
+    """The BENCH_* environment set to ``values`` (and nothing else) inside
+    the block."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update({f"BENCH_{k}": str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+def bench_rows(tag, overrides=None, **env):
+    """``run_bench.main()`` in this process under the BENCH_* ``env``, its
+    printed rows logged under ``tag``; every timed call counted and the
+    kernels' launches read around each row's timing
+    (``run_bench.device_time``) and around the whole run. Returns (rows,
+    [{calls, launches} a timed row], the run's launches)."""
+    real, records = run_bench.device_time, []
+
+    def timed(fn, args, **kw):
+        calls = [0]
+
+        def counted(*a):
+            calls[0] += 1
+            return fn(*a)
+        before = launch_counts()
+        t = real(counted, args, **kw)
+        after = launch_counts()
+        records.append({"calls": calls[0], "launches": {
+            k: after[k] - before[k] for k in after}})
+        return t
+    reset_launches()
+    run_bench.device_time = timed
+    try:
+        with bench_env(**env):
+            rows, _, printed = run_driver(
+                lambda _argv: run_bench.main(**(overrides or {})), [], tag)
+    finally:
+        run_bench.device_time = real
+    check(printed == rows, f"{tag} the printed rows differ from main's")
+    return rows, records, launch_counts()
+
+
+def bench_row_checks(tag, rows, names):
+    check([r["metric"] for r in rows] == names,
+          f"{tag} rows {[r['metric'] for r in rows]}, not {names}")
+    check(run_bench.finite_rows(rows) and all(
+        r["vs_baseline"] is None for r in rows),
+        f"{tag} a row is not finite and positive, or holds an error: {rows}")
+
+
+def bench_path(tmp, device="cuda", batch=128, iters=BENCH_ITERS,
+               meta_iters=BENCH_META_ITERS, overrides=None, busy=None,
+               roofline_args=ROOFLINE_ARGS, meta_size=None,
+               cli_env=BENCH_CLI_ENV):
+    """Phase 17: (a) ``run_bench.main()`` at its defaults (``batch``,
+    ``iters``; the train row, the exact row, the north-star row last),
+    each row finite, K3 / K4 once a timed train step, K2 and K1 once a
+    call of the exact row (K2's packed keys give the exact selection's
+    first stage on bf16 logits) and of the north-star row;
+    (b) ``BENCH_MODE=meta`` (bf16, 640 / 256 px, or ``meta_size``;
+    ``meta_iters`` timed calls a run: K3 / K4 once at the build, nothing
+    in the timed episodes) and
+    ``BENCH_MODE=loader`` at ``batch``; (c) the CLI as a subprocess under
+    ``cli_env``; (d) with ``busy`` (phase 5's B = 128 request and phase
+    7's B = 128 step busy seconds) no row faster than the card's busy
+    time allows, BENCH_ROW_MARGIN over; (e) one ``train_roofline`` row
+    with a profiler trace, ``profile_kernel_stats`` over it and
+    ``run_roofline_sweep --only predict``, every roofline share at most
+    1. ``overrides`` go into every model config and ``roofline_args``
+    to the roofline (the CPU rehearsal's small models). Returns
+    {'rows', 'records', 'meta', 'loader', 'cli', 'roofline', 'sweep'}."""
+    on_card = torch.device(device).type == "cuda"
+    dev = {} if on_card else {"DEVICE": device}
+    out = {}
+
+    # (a) the default run
+    t0 = time.time()
+    rows, records, launches = bench_rows(
+        "[17] (a)", overrides, BATCH=batch, ITERS=iters, **dev)
+    size = (overrides or {}).get("image_size", (IMG, IMG))[0]
+    stages = "preproc+fwd+softNMS+OOD"
+    bench_row_checks("[17] (a)", rows, [
+        run_bench.train_metric("efficientdet_d0", size, "bfloat16",
+                               "backbone", batch),
+        f"efficientdet_d0@{size} e2e inference ({stages}, topk=exact), "
+        f"bs={batch}",
+        f"efficientdet_d0@{size} e2e inference ({stages}), bs={batch}"])
+    check(len(records) == 3, f"[17] (a) {len(records)} timed rows, not 3")
+    if on_card:
+        # the exact selection's first stage reads K2's packed keys too
+        want = [{"K1": 0, "K2": 0, "K3": 1, "K4": 1},
+                {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
+                {"K1": 1, "K2": 1, "K3": 0, "K4": 0}]
+        for rec, per_call, r in zip(records, want, rows):
+            expect = {k: v * rec["calls"] for k, v in per_call.items()}
+            check(rec["launches"] == expect,
+                  f"[17] (a) {r['metric']}: launches {rec['launches']} over "
+                  f"{rec['calls']} calls, not {expect}")
+    for r, rec in zip(rows, records):
+        log(f"[17] (a) [{CARD}] {r['metric']}: {r['value']} {r['unit']} "
+            f"({rec['calls']} timed calls, launches {rec['launches']})")
+    log(f"[17] (a) launches over the run {launches}; {time.time() - t0:.1f} s")
+    out["rows"], out["records"] = rows, records
+
+    # (d) no row faster than the card's busy time
+    if busy is not None:
+        for r, (what, seconds) in zip((rows[2], rows[0]), (
+                ("phase 5 B=128 request", busy["predict"]),
+                ("phase 7 B=128 step", busy["train"]))):
+            ceiling = BENCH_ROW_MARGIN * batch / seconds
+            check(r["value"] <= ceiling,
+                  f"[17] (d) {r['metric']}: {r['value']} images/s above "
+                  f"{ceiling} ({BENCH_ROW_MARGIN} x {batch} / {what} busy "
+                  f"{seconds} s): the timer read the enqueue")
+            log(f"[17] (d) [{CARD}] {r['metric']}: {r['value']} images/s <= "
+                f"{ceiling} ({BENCH_ROW_MARGIN} x {batch} images / {what} "
+                f"busy {seconds * 1e3} ms)")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) meta and loader
+    t0 = time.time()
+    qry, sup = meta_size or (640, 256)
+    meta_overrides = {k: v for k, v in (overrides or {}).items()
+                      if k != "image_size"}
+    rows, records, launches = bench_rows(
+        "[17] (b)", meta_overrides, MODE="meta", META_QRY=qry,
+        META_SUP=sup, ITERS=meta_iters, **dev)
+    mc = MetaConfig(img_size=sup, qry_img_size=qry)
+    bench_row_checks("[17] (b)", rows, [run_bench.meta_metric(
+        "efficientdet_d0", "bfloat16", mc, sup, qry)])
+    if on_card:
+        check(launches == {"K1": 0, "K2": 0, "K3": 1, "K4": 1}
+              and set(records[0]["launches"].values()) == {0},
+              f"[17] (b) meta: K3 / K4 once at the build and nothing in "
+              f"the timed episodes: {launches}, {records}")
+    log(f"[17] (b) [{CARD}] {rows[0]['metric']}: {rows[0]['value']} "
+        f"episodes/s ({records[0]['calls']} timed episodes; launches "
+        f"{launches}); {time.time() - t0:.1f} s")
+    out["meta"] = rows[0]
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    rows, _, _ = bench_rows("[17] (b)", None, MODE="loader", BATCH=batch,
+                            ITERS=BENCH_LOADER_ITERS, **dev)
+    bench_row_checks("[17] (b)", rows, [run_bench.loader_metric(
+        native_decode_available(), batch)])
+    log(f"[17] (b) [{CARD}] {rows[0]['metric']}: {rows[0]['value']} "
+        f"images/s over {BENCH_LOADER_ITERS} batches; "
+        f"{time.time() - t0:.1f} s")
+    out["loader"] = rows[0]
+
+    # (c) the CLI itself
+    t0 = time.time()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update({f"BENCH_{k}": str(v) for k, v in {**cli_env, **dev}.items()})
+    proc = subprocess.run(
+        [sys.executable, "-m", "ood_object_detection_tpu_torch.run_bench"],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-20:]:
+        log(f"[17] (c) {line}")
+    check(proc.returncode == 0, f"[17] (c) the CLI exited {proc.returncode}")
+    rows = json_lines(proc.stdout)
+    bench_row_checks("[17] (c)", rows, [
+        f"efficientdet_d0@{IMG} e2e inference ({stages}), "
+        f"bs={cli_env['BATCH']}"])
+    log(f"[17] (c) [{CARD}] the CLI ({cli_env}): {rows[0]['value']} "
+        f"images/s; {time.time() - t0:.1f} s")
+    out["cli"] = rows[0]
+
+    # (e) rooflines
+    t0 = time.time()
+    prof = os.path.join(tmp, "roofline_trace")
+    argv = list(roofline_args) + ["--profile-dir", prof] + (
+        [] if on_card else ["--device", device])
+    roof, _, _ = run_driver(train_roofline.main, argv, "[17] (e)")
+    out["roofline"] = roof
+    shares = [roof["hbm_bw_utilization"], roof["tensor_core_utilization"]]
+    if on_card:
+        table, _, _ = run_driver(profile_kernel_stats.main,
+                                 [prof, "--calls", "3", "--top", "15"],
+                                 "[17] (e) kernels")
+        check(table["rows"], "[17] (e) the trace holds no device kernel")
+        log(f"[17] (e) [{CARD}] traced step: device "
+            f"{table['device_us_per_call'] / 1e3} ms, busy "
+            f"{table['busy_us_per_call'] / 1e3} ms, span "
+            f"{table['span_us_per_call'] / 1e3} ms a step (3 steps)")
+    else:
+        check(os.path.exists(os.path.join(prof, "trace.json")),
+              "[17] (e) no trace written")
+    sweep_out = os.path.join(tmp, "roofline_sweep.json")
+    sweep, _, _ = run_driver(
+        run_roofline_sweep.main, ["--only", "predict", "--out", sweep_out,
+                                  "--iters", str(ROOFLINE_ITERS)]
+        + ([] if on_card else ["--device", device]), "[17] (e) sweep")
+    check(len(sweep) == 1 and sweep[0]["status"] == "ok",
+          f"[17] (e) the predict sweep row failed: {sweep}")
+    out["sweep"] = sweep[0]
+    shares += [sweep[0]["hbm_bw_utilization"],
+               sweep[0]["tensor_core_utilization"]]
+    check(all(0.0 < x <= 1.0 for x in shares),
+          f"[17] (e) a roofline share outside (0, 1]: {shares}")
+    for r in (roof, sweep[0]):
+        log(f"[17] (e) [{CARD}] roofline {r['model']} {r['task']} "
+            f"bs={r['batch']} freeze_bn={r['freeze_bn']}: "
+            f"{r['t_measured_ms']} ms, {r['images_per_sec']} images/s; "
+            f"{r['flops_per_step']} FLOPs ({r['matmul_flops_per_step']} "
+            f"conv / matmul), {r['hbm_bytes_per_step']} eager bytes; "
+            f"bounds {r['t_compute_bound_ms']} / {r['t_hbm_bound_ms']} ms, "
+            f"shares tensor cores {r['tensor_core_utilization']}, memory "
+            f"{r['hbm_bw_utilization']}")
+    log(f"[17] (e) {time.time() - t0:.1f} s")
+    return out
 
 if __name__ == "__main__":
     with torch.no_grad():

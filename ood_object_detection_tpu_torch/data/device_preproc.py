@@ -91,8 +91,13 @@ def _letterbox_op(canvases: torch.Tensor, true_hw: torch.Tensor,
             continue
         img = canvases[i].permute(2, 0, 1)[None].to(torch.float32)
         s = float(scale[i])
-        out = torch.ops.aten._upsample_bilinear2d_aa(img, [sh, sw], False,
-                                                     s, s)[0]
+        # an axis whose output size equals its input size is copied, not
+        # resampled, whatever the scale: resample one more row or column
+        # there and drop it (the kept ones depend on the scale alone)
+        oh = sh + 1 if sh == img.shape[2] else sh
+        ow = sw + 1 if sw == img.shape[3] else sw
+        out = torch.ops.aten._upsample_bilinear2d_aa(img, [oh, ow], False,
+                                                     s, s)[0, :, :sh, :sw]
         images[i, :sh, :sw] = out.to(dtype).permute(1, 2, 0)
 
     mean_t = (torch.tensor(mean, dtype=torch.float32) * 255.0).to(dtype)

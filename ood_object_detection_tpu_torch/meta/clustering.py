@@ -37,6 +37,16 @@ class ClusterResult:
     champion_target_clust: torch.Tensor   # [S] refined champions' quality
 
 
+def gate_dtype(conf_logits: torch.Tensor, dot_mult: torch.Tensor,
+               dot_add: torch.Tensor) -> torch.dtype:
+    """The dtype jax gives ``dot_mult * (conf_logits + dot_add)``: the gate
+    scalars are f32 arrays, not weak Python numbers, so they promote bf16
+    confidences to f32."""
+    return torch.promote_types(
+        conf_logits.dtype,
+        torch.promote_types(dot_mult.dtype, dot_add.dtype))
+
+
 def cluster_pseudo_targets(
         embeddings: torch.Tensor,     # [S, K, D] per-image anchor embeddings
         conf_logits: torch.Tensor,    # [S, K] confidence logits
@@ -55,14 +65,20 @@ def cluster_pseudo_targets(
     s, k, d = embeddings.shape
     m = s * k
 
-    embds = embeddings.reshape(m, d)
-    embds = embds / torch.clamp(
-        torch.linalg.vector_norm(embds, dim=-1, keepdim=True), min=1e-12)
-
-    conf_flat = conf_logits.reshape(m)
+    # jax promotes bf16 confidences against the f32 gate scalars, and the
+    # embeddings against the gate, to f32; torch keeps a tensor's dtype
+    # against a 0-d one and matmul promotes nothing, so cast (a no-op in
+    # f32)
+    conf_flat = conf_logits.reshape(m).to(gate_dtype(conf_logits, dot_mult,
+                                                     dot_add))
     soft_thresh = torch.sigmoid(dot_mult * (conf_flat + dot_add))
     if gate_stop_grad:
         soft_thresh = soft_thresh.detach()
+
+    embds = embeddings.reshape(m, d).to(
+        torch.promote_types(embeddings.dtype, soft_thresh.dtype))
+    embds = embds / torch.clamp(
+        torch.linalg.vector_norm(embds, dim=-1, keepdim=True), min=1e-12)
 
     # initial champions: per image, the anchor with the largest mean gated
     # similarity, t_i * (e_i . sum_j t_j e_j) / M

@@ -42,7 +42,8 @@ from ..ops.losses import detection_loss_nhwc
 from ..ops.post_process import _per_anchor_reduce, generate_detections
 from ..parallel.mesh import all_reduce_sum
 from ..train.train_state import _clip_by_global_norm
-from .clustering import cluster_pseudo_targets, projection_losses
+from .clustering import (cluster_pseudo_targets, gate_dtype,
+                         projection_losses)
 from .config import MetaConfig
 from .inner_loop import class_head, init_inner_lrs, inner_adapt
 from .projection import build_anchor_features, select_confident_anchors
@@ -108,7 +109,8 @@ def projection_phase_loss(model, proj_net,
     result = cluster_pseudo_targets(
         embds, confs, dot_mult, dot_add, sim_thresh=None,
         refine_reduce="mean", sim_target=meta_cfg.sim_target)
-    soft_logits = dot_mult * (confs.reshape(-1) + dot_add)
+    soft_logits = dot_mult * (
+        confs.reshape(-1).to(gate_dtype(confs, dot_mult, dot_add)) + dot_add)
     embds_loss, clust_loss, obj_loss = projection_losses(
         result, labels.reshape(-1), batch["task_cls"], soft_logits,
         loss_mode=meta_cfg.loss_mode, sim_target=meta_cfg.sim_target,

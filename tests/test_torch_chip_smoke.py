@@ -4,6 +4,8 @@ K1's bound counts the picks this run's data makes; and the drives of its
 meta (phase 8) and validate (phase 9) paths on the CPU at 128 px."""
 import importlib.util
 import json
+import subprocess
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -478,6 +480,31 @@ def test_examples_path_drive_runs_on_the_cpu(tmp_path, min_pascal):
     assert set(launches.values()) == {0}
 
 
+def test_examples_started_before_another_phase_on_the_cpu(tmp_path):
+    """main's order for phase 15 on the CPU: its example processes start
+    (start_examples on examples_argvs), other work runs beside them, and
+    examples_path then joins the started processes and checks their
+    results; stop_examples kills processes still running."""
+    open_args = ["--steps", "2", "--image-size", "128"]
+    select_args = open_args + ["--val-images", "32"]
+    argvs = chip_smoke.examples_argvs(str(tmp_path), "cpu", open_args,
+                                      select_args)
+    assert argvs["selection_quality"][:2] == [
+        "--out", str(tmp_path / "selection_quality_out.json")]
+    started = chip_smoke.start_examples(str(tmp_path), argvs)
+    assert set(started) == {"open_set_demo", "selection_quality"}
+    with torch.enable_grad():
+        out = chip_smoke.examples_path(
+            str(tmp_path), device="cpu", open_args=open_args,
+            select_args=select_args, min_pascal=0.0, started=started)
+    assert all(proc.poll() == 0 for proc in started.values())
+    assert out["selection_quality"][0]["approx"]["overlap_vs_exact"] >= 0.99
+    sleeper = subprocess.Popen([sys.executable, "-c",
+                                "import time; time.sleep(60)"])
+    chip_smoke.stop_examples({"sleeper": sleeper})
+    assert sleeper.poll() is not None
+
+
 def test_example_kernel_inputs_have_the_examples_shapes():
     """Phase 15's kernel inputs on the CPU: selection_quality's val batch
     (16 images, 100 padded rows) against D0@256's 12,276 anchors, and
@@ -490,3 +517,33 @@ def test_example_kernel_inputs_have_the_examples_shapes():
     assert cand.logits.shape == (16, 5000, 1)
     dets, keep = chip_smoke.pp.batch_detection(*cand[:4], kernels=False)
     assert (keep >= 0).sum() > 16
+
+
+def test_bench_drive_runs_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 17's drive (bench_path) on the CPU at 128 px: run_bench's
+    default run (the three rows in the JAX bench's names and order, each
+    timed call counted), the meta mode at 128 / 128 and the loader mode,
+    the CLI as a subprocess (D0@512, batch 1), a train_roofline row with
+    its trace and the predict sweep (one small config in place of
+    D4@1024); every row finite, every roofline share in (0, 1]. The
+    launch checks and the busy-time ceiling need the card."""
+    monkeypatch.setattr(chip_smoke.run_roofline_sweep, "PREDICT_CONFIGS", [
+        dict(model="efficientdet_d0", batch=1, freeze_bn="none", remat=0,
+             task="predict", image_size=128)])
+    tiny = {"image_size": (128, 128), "fpn_cell_repeats": 1,
+            "box_class_repeats": 1, "max_detection_points": 3000}
+    with torch.no_grad():                   # as the script runs
+        out = chip_smoke.bench_path(
+            str(tmp_path), device="cpu", batch=1, iters=1, meta_iters=1,
+            overrides=tiny,
+            roofline_args=("--batch", "1", "--image-size", "128", "--iters",
+                           "1"),
+            meta_size=(128, 128),
+            cli_env={"EXTRA": "0", "BATCH": "1", "ITERS": "1"})
+    assert [rec["calls"] for rec in out["records"]] == [4, 4, 4]
+    assert out["rows"][-1]["metric"] == (
+        "efficientdet_d0@128 e2e inference (preproc+fwd+softNMS+OOD), bs=1")
+    assert out["meta"]["unit"] == "episodes/sec"
+    assert out["cli"]["metric"].endswith("bs=1")
+    assert out["roofline"]["task"] == "train"
+    assert out["sweep"]["task"] == "predict" and out["sweep"]["batch"] == 1

@@ -73,6 +73,11 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.ops.box_coder",
     "ood_object_detection_tpu_torch.examples.open_set_demo",
     "ood_object_detection_tpu_torch.examples.selection_quality",
+    "ood_object_detection_tpu_torch.run_bench",
+    "ood_object_detection_tpu_torch.utils.benchmark",
+    "ood_object_detection_tpu_torch.examples.train_roofline",
+    "ood_object_detection_tpu_torch.examples.run_roofline_sweep",
+    "ood_object_detection_tpu_torch.examples.profile_kernel_stats",
 )
 
 
@@ -133,6 +138,17 @@ def test_public_api_exports_load_no_jax():
                          capture_output=True, text=True, check=True,
                          timeout=120)
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_bench_tools_without_device_need_cuda(monkeypatch):
+    from ood_object_detection_tpu_torch import run_bench
+    from ood_object_detection_tpu_torch.examples import train_roofline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("BENCH_DEVICE", raising=False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        run_bench.main()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_roofline.main(["--skip-measure", "--image-size", "128"])
 
 
 @pytest.mark.parametrize("example", ["open_set_demo", "selection_quality"])

@@ -30,6 +30,9 @@ CASES = {
                                 (96, 128)),
     # 640 / 100 is not 640 * (1 / 100) in f32
     "side_100_to_640": ((100, 100), [[100, 80], [100, 100]], (640, 640)),
+    # a scaled side equal to the canvas side (the predict bench's canvases
+    # are target-sized): that axis must be resampled, not copied
+    "scaled_side_equal_to_canvas": ((128, 128), [[60, 90], [101, 100]]),
 }
 
 

@@ -53,14 +53,16 @@ MODEL_KW = dict(num_classes=1, image_size=(IMG, IMG), fpn_cell_repeats=1,
 HOST_KEYS = ("task_cats", "val_iter")
 
 
-def configs(separate_head=False, **meta_kw):
+def configs(separate_head=False, model_kw=None, **meta_kw):
     """(JAX meta config, JAX model config, port meta config, port model
-    config) of the tiny set-up."""
+    config) of the tiny set-up; ``model_kw`` overrides model fields of
+    both (``compute_dtype``, say)."""
     kw = {**META_KW, "separate_head": separate_head, **meta_kw}
+    mkw = {**MODEL_KW, **(model_kw or {})}
     jmc = jax_cfg("efficientdet_d0", separate_head=separate_head).replace(
-        **MODEL_KW)
+        **mkw)
     tmc = get_efficientdet_config(
-        "efficientdet_d0", separate_head=separate_head).replace(**MODEL_KW)
+        "efficientdet_d0", separate_head=separate_head).replace(**mkw)
     return JaxMetaConfig(**kw), jmc, MetaConfig(**kw), tmc
 
 
@@ -221,10 +223,10 @@ def optax_moments(opt_state, names):
     return out
 
 
-def setup(separate_head=False, count=1, **meta_kw):
+def setup(separate_head=False, count=1, model_kw=None, **meta_kw):
     """Both sides of the tiny set-up (running statistics calibrated on the
     episodes' images) and ``count`` episodes."""
-    jmeta, jmc, tmeta, tmc = configs(separate_head, **meta_kw)
+    jmeta, jmc, tmeta, tmc = configs(separate_head, model_kw, **meta_kw)
     jmodel, variables = jax_model(jmc)
     jproj, proj_params = jax_projection(jmeta)
     lsz, episodes = jax_episodes(jmeta, jmc, count=count)
