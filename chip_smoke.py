@@ -234,6 +234,25 @@ Phases, each synchronised so that a fault shows where it happened:
      and ``examples.run_roofline_sweep --only predict`` (D4@1024, batch
      16, a subprocess), every roofline share in (0, 1]. Each row is logged
      with the card's name and power limit, never as a bare JSON line.
+ 18. published weights and timm checkpoints (pretrained_path), through
+     ``import ood_object_detection_tpu_torch as odt``: (a) phase 9's
+     reference-named D0 under efficientdet_d0's published file name in a
+     cache directory, ``OOD_TPU_CHECKPOINT_CACHE`` set to it and
+     ``urllib.request.urlretrieve`` raising; ``odt.create_model(...,
+     pretrained=True)`` with no device (D0@512, 90 classes, bf16,
+     soft-NMS, energy) answers 3 requests of 16 canvases: no fetch, the
+     load report with nothing missing or unexpected, K2 once a request
+     and K1, finite outputs with detections, every request's detections
+     and OOD scores torch.equal to ``checkpoint_path=`` on the file, the
+     plain path equal on the last batch; (b) timm's training checkpoint
+     of the same weights (``args`` an ``argparse.Namespace``, ``metric`` a
+     float) with an EMA copy raising three other classes:
+     ``checkpoint_ema=True`` loads the EMA class bias and answers a
+     request as a bare file of the EMA state_dict does, and the deploy
+     CLI's ``load_checkpoint`` reads the file as "reference". The phase's
+     wall seconds and a B = 16 request's ms (CUDA events, median of 3)
+     are logged with the card's name and power limit. Its K1 / K2
+     launches count in the kernels line with phase 4's and the rest.
 Phases 10, 11, 13, 14, 15 and 17 run with PyTorch's default cuDNN TF32
 (the earlier phases turn it off), as a user runs the CLIs; phase 14
 turns it off for its equality step, phase 16 for all of it.
@@ -258,6 +277,7 @@ Usage: python3 chip_smoke.py        (one CUDA card; nvcc on PATH or in
        started by its torchrun launches; ``--example <json>`` one example
        of phase 15.)
 """
+import argparse
 import collections
 import contextlib
 import ctypes.util
@@ -274,13 +294,16 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.request
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import ood_object_detection_tpu_torch as odt
 from ood_object_detection_tpu_torch.data.device_preproc import (
     batched_letterbox_normalize)
 from ood_object_detection_tpu_torch import export, run_bench, validate
@@ -326,7 +349,9 @@ from ood_object_detection_tpu_torch.train import train_state as train_state_mod
 from ood_object_detection_tpu_torch.train.checkpoint import save_variables
 from ood_object_detection_tpu_torch.train.train_state import (
     apply_gradients, detection_loss)
-from ood_object_detection_tpu_torch.utils import StepTimer, from_jax
+from ood_object_detection_tpu_torch.utils import (StepTimer, device_time,
+                                                  from_jax, load_pretrained)
+from ood_object_detection_tpu_torch.utils.pretrained import PRETRAINED_URLS
 
 # the module (the package's ``post_process`` is the function)
 pp = importlib.import_module(
@@ -444,6 +469,10 @@ BENCH_ROW_MARGIN = 1.05
 ROOFLINE_ITERS = 5
 ROOFLINE_ARGS = ("--batch", "64", "--freeze-bn", "none", "--iters",
                  str(ROOFLINE_ITERS))
+# phase 18: the published-weights path (requests of BATCH canvases) and
+# the EMA copy's raised classes in a timm training checkpoint
+PRETRAINED_REQUESTS = 3
+EMA_CLASSES = slice(3, 6)
 CARD = "not read"
 # CUDA runtime calls that put an operation on the card (profiler names)
 RUNTIME_OPS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
@@ -2975,6 +3004,16 @@ def main(argv=()):
     sync()
     log(f"[17] phase 17 took {time.time() - t0:.1f} s")
 
+    # 18. published weights from the cache (pretrained=True, nothing
+    #     fetched) and a timm training checkpoint's EMA copy, through the
+    #     package's top-level names: 3 requests of 16 through K2 and K1
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False        # as phase 4
+    with tempfile.TemporaryDirectory() as tmp:
+        launches18, _, _ = pretrained_path(tmp, gen)
+    for name in ("K1", "K2"):
+        launches[name] += launches18[name]
+
     kernels = [
         dict(name="K1 batched soft/hard NMS", route="cuda",
              source=REPO_KERNELS["K1"][0], replaces=REPO_KERNELS["K1"][1],
@@ -4691,6 +4730,146 @@ def bench_path(tmp, device="cuda", batch=128, iters=BENCH_ITERS,
             f"{r['hbm_bw_utilization']}")
     log(f"[17] (e) {time.time() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 18. published weights and timm training checkpoints, through the
+#     package's top-level names
+
+def predict_request(bench, imgs, hw, img):
+    pre = batched_letterbox_normalize(imgs, hw, target_hw=(img, img),
+                                      out_dtype="bfloat16")
+    return pre, bench(pre["image"], pre)
+
+
+def pretrained_path(tmp, gen, device="cuda", img=IMG, batch=BATCH,
+                    requests=PRETRAINED_REQUESTS, overrides=None):
+    """Phase 18: (a) the seeded D0 with three class biases raised
+    (write_reference_pth) in a cache directory under the published file
+    name of efficientdet_d0, ``OOD_TPU_CHECKPOINT_CACHE`` pointing there
+    and ``urllib.request.urlretrieve`` raising; ``odt.create_model(...,
+    pretrained=True)`` (bf16, soft-NMS, energy; on the card unless
+    ``device`` names another) answers ``requests`` requests of ``batch``
+    canvases: nothing fetched, ``load_pretrained``'s report with nothing
+    missing or unexpected, K2 once a request and K1 on the card, finite
+    outputs with detections, each request's detections and OOD scores
+    equal to those of ``checkpoint_path=`` on that file, the plain path
+    equal on the last batch (plain_path_compare). (b) timm's training
+    checkpoint of that state_dict (an ``argparse.Namespace`` and a float
+    metric beside it) with an EMA copy whose raised classes are
+    EMA_CLASSES: ``checkpoint_ema=True`` loads the EMA copy and answers a
+    request as a bare file of the EMA state_dict does; the deploy CLI's
+    ``load_checkpoint`` reads it as "reference". Returns the launches of
+    (a)'s requests, the plain_path_compare result and the times."""
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.time()
+    kw = dict(bench_task="predict", num_classes=NUM_CLASSES, soft_nms=True,
+              ood_method="energy", compute_dtype="bfloat16",
+              image_size=(img, img), **(overrides or {}),
+              **({} if on_card else {"device": device}))
+    cache = os.path.join(tmp, "cache")
+    os.makedirs(cache)
+    pth = os.path.join(cache,
+                       os.path.basename(PRETRAINED_URLS["efficientdet_d0"]))
+    write_reference_pth(pth)
+    fetches = []
+
+    def refuse(url, dst):
+        fetches.append(url)
+        raise RuntimeError(f"[18] (a) a fetch of {url}: the cache holds it")
+
+    reqs = [canvases(batch, gen, img=img, device=device)
+            for _ in range(requests)]
+    with mock.patch.dict(os.environ, {"OOD_TPU_CHECKPOINT_CACHE": cache}), \
+            mock.patch.object(urllib.request, "urlretrieve", refuse):
+        bench = odt.create_model("efficientdet_d0", pretrained=True, **kw)
+        report = load_pretrained("efficientdet_d0", bench.model)
+    check(not fetches, f"[18] (a) urlretrieve called: {fetches}")
+    check(not report["missing"] and not report["unexpected"],
+          f"[18] (a) load report: missing {report['missing'][:5]}, "
+          f"unexpected {report['unexpected'][:5]}")
+    check(next(bench.model.parameters()).device.type
+          == torch.device(device).type, "[18] (a) the model is not on "
+          f"{device}")
+    sync_if(on_card)
+    reset_launches()
+    outs = [predict_request(bench, imgs, hw, img) for imgs, hw in reqs]
+    sync_if(on_card)
+    launches = launch_counts()
+    if on_card:
+        check(launches["K2"] == requests and launches["K1"] > 0,
+              f"[18] (a) K2 once a request and K1 must launch: {launches}")
+    pre, (dets, ood) = outs[-1]
+    check(tuple(dets.shape) == (batch, 100, 6)
+          and tuple(ood.shape) == (batch, 100), "[18] (a) output shapes")
+    check(all(bool(torch.isfinite(d).all()) and bool(torch.isfinite(o).all())
+              for _, (d, o) in outs), "[18] (a) non-finite outputs")
+    n_det = int((dets[..., 4] > 0).sum())
+    check(n_det > 0, "[18] (a) no detections")
+    log(f"[18] (a) pretrained=True from the cache ({len(report['loaded'])} "
+        f"tensors, urlretrieve called {len(fetches)} times): {requests} "
+        f"requests x {batch} images, launches {launches}, {n_det} "
+        "detections in the last")
+    ref = odt.create_model("efficientdet_d0", checkpoint_path=pth, **kw)
+    for (imgs, hw), (_, (d, o)) in zip(reqs, outs):
+        _, (d_ref, o_ref) = predict_request(ref, imgs, hw, img)
+        check(torch.equal(d, d_ref) and torch.equal(o, o_ref),
+              "[18] (a) pretrained=True and checkpoint_path= answer "
+              "differently")
+    compared = plain_path_compare(bench, pre, tag="[18] (a)")
+    sync_if(on_card)
+    request_ms = 1e3 * device_time(
+        lambda: predict_request(bench, *reqs[0], img), (), iters=1,
+        repeats=3, device=device)
+    clock = "CUDA events" if on_card else "the host clock"
+    log(f"[18] (a) [{CARD}] equal to checkpoint_path= on {requests} "
+        f"requests; a B={batch} request {request_ms} ms ({clock}, median "
+        "of 3)")
+
+    # (b) timm's training checkpoint, its EMA copy on other classes
+    bias = "class_net.predict.conv_pw.bias"
+    state = torch.load(pth, weights_only=True)
+    ema = dict(state)
+    ema_bias = state[bias].clone().view(-1, NUM_CLASSES)
+    ema_bias[:, :3] -= 2.0
+    ema_bias[:, EMA_CLASSES] += 2.0
+    ema[bias] = ema_bias.view(-1)
+    timm = os.path.join(tmp, "model_best.pth")
+    torch.save({"epoch": 36, "arch": "efficientdet_d0", "version": 2,
+                "metric": 0.4183,
+                "args": argparse.Namespace(model="efficientdet_d0",
+                                           model_ema=True, lr=0.09),
+                "state_dict": state, "state_dict_ema": ema}, timm)
+    bare = os.path.join(tmp, "ema.pth")
+    torch.save(ema, bare)
+    picked = odt.create_model("efficientdet_d0", checkpoint_path=timm,
+                              checkpoint_ema=True, **kw)
+    check(torch.equal(picked.model.class_net.predict_bias().detach().cpu(),
+                      ema[bias]), "[18] (b) checkpoint_ema did not pick the "
+          "EMA copy")
+    odt.load_pytorch_checkpoint(bare, ref.model, strict=True)
+    _, (d_ema, o_ema) = predict_request(picked, *reqs[0], img)
+    _, (d_bare, o_bare) = predict_request(ref, *reqs[0], img)
+    check(torch.equal(d_ema, d_bare) and torch.equal(o_ema, o_bare),
+          "[18] (b) the timm container's EMA weights answer unlike the bare "
+          "EMA state_dict")
+    n_ema = int((d_ema[..., 4] > 0).sum())
+    check(n_ema > 0 and not torch.equal(d_ema, outs[0][1][0]),
+          "[18] (b) the EMA weights answer as the state_dict's do")
+    kind = deploy_infer.load_checkpoint(bench.model, timm)
+    check(kind == "reference", f"[18] (b) deploy_infer read the timm "
+          f"checkpoint as {kind!r}")
+    check(torch.equal(bench.model.class_net.predict_bias().detach().cpu(),
+                      state[bias]), "[18] (b) deploy_infer did not load the "
+          "state_dict")
+    sync_if(on_card)
+    seconds = time.time() - t_phase
+    log(f"[18] (b) timm checkpoint (args an argparse.Namespace, metric a "
+        f"float): checkpoint_ema=True picked the EMA copy, equal to the bare "
+        f"EMA file ({n_ema} detections); deploy_infer read it as {kind!r}")
+    log(f"[18] [{CARD}] phase 18 took {seconds} s; a B={batch} request "
+        f"{request_ms} ms")
+    return launches, compared, {"seconds": seconds, "request_ms": request_ms}
 
 if __name__ == "__main__":
     with torch.no_grad():

@@ -37,15 +37,17 @@ def load_checkpoint(model: nn.Module, path: str) -> str:
     """Load ``path`` into ``model`` in place: a variables file of the port
     (the model's own ``state_dict`` keys, shapes checked) or a
     reference-format ``.pth`` / ``.pt`` (``utils.checkpoint_convert``, as
-    ``create_model(checkpoint_path=...)`` reads it). Returns which."""
+    ``create_model(checkpoint_path=...)`` reads it, timm's training
+    checkpoints included). Returns which."""
     from ..train.checkpoint import restore_variables
-    from ..utils.checkpoint_convert import load_pytorch_checkpoint
+    from ..utils.checkpoint_convert import (load_pytorch_checkpoint,
+                                            load_reference)
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path!r} is a directory: the port reads no orbax checkpoint; "
             "pass a variables file of the port or a reference .pth / .pt")
     state = model.state_dict()
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    tree = load_reference(path)
     if isinstance(tree, dict) and set(tree) == set(state):
         model.load_state_dict(restore_variables(path, state))
         return "port"

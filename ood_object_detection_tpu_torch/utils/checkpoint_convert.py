@@ -6,8 +6,11 @@ The name rules and ``extract_state_dict`` are copied from
 of the reference's names becomes the JAX package's ``{"params": ...,
 "batch_stats": ...}`` tree, which ``utils.from_jax.load_jax_variables``
 then loads, so that one mapping (the JAX tree <-> the port's modules)
-stays the truth. Checkpoints are read from a local path only, with
-``torch.load(..., weights_only=True)``.
+stays the truth; ``merge_into_variables`` is the JAX package's graft of
+such a tree onto a variables tree, in numpy. Checkpoints are read from a
+local path only, by ``load_reference``: ``torch.load(...,
+weights_only=True)`` with ``argparse.Namespace`` allowed, the ``args``
+that timm's ``CheckpointSaver`` pickles into a training checkpoint.
 
 Layout rules:
   conv weight   torch [out, in/groups, kh, kw] -> flax kernel [kh, kw, in/groups, out]
@@ -18,6 +21,7 @@ Layout rules:
 """
 from __future__ import annotations
 
+import argparse
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -219,6 +223,55 @@ def convert_state_dict(state_dict: Dict[str, Any]) -> Dict[str, Dict]:
     return out
 
 
+def _flatten(tree, prefix=()):
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def merge_into_variables(variables: Dict, converted: Dict,
+                         strict: bool = False) -> Tuple[Dict, Dict]:
+    """Graft converted tensors onto an initialized variables tree.
+
+    Returns (new_variables, report) where report lists 'loaded',
+    'missing' (in model but not ckpt) and 'unexpected' (in ckpt but not
+    model, or shape mismatches).
+    """
+    report = {"loaded": [], "missing": [], "unexpected": []}
+    new_vars = {}
+    for collection in variables:
+        model_flat = _flatten(variables[collection])
+        ckpt_flat = _flatten(converted.get(collection, {}))
+        merged = {}
+        for key, val in model_flat.items():
+            if key in ckpt_flat and tuple(ckpt_flat[key].shape) == tuple(val.shape):
+                merged[key] = np.asarray(ckpt_flat[key], dtype=np.float32)
+                report["loaded"].append("/".join(key))
+            else:
+                if key in ckpt_flat:
+                    report["unexpected"].append(
+                        "/".join(key) +
+                        f" shape {ckpt_flat[key].shape} vs {val.shape}")
+                else:
+                    report["missing"].append("/".join(key))
+                merged[key] = val
+        for key in ckpt_flat:
+            if key not in model_flat:
+                report["unexpected"].append("/".join(key))
+        # unflatten
+        tree: Dict = {}
+        for key, val in merged.items():
+            _set_in(tree, key[:-1], key[-1], val)
+        new_vars[collection] = tree
+    if strict and (report["missing"] or report["unexpected"]):
+        raise ValueError(f"checkpoint mismatch: {report}")
+    return new_vars, report
+
+
 def extract_state_dict(checkpoint: Dict[str, Any],
                        use_ema: bool = False) -> Dict[str, Any]:
     """Pick the (EMA) state_dict out of a torch checkpoint container.
@@ -253,6 +306,23 @@ def extract_state_dict(checkpoint: Dict[str, Any],
     return state
 
 
+# the one non-tensor global that timm's CheckpointSaver writes (its
+# ``args``); anything else a file pickles stays refused
+REFERENCE_GLOBALS = (argparse.Namespace,)
+
+
+def load_reference(path: str) -> Any:
+    """Read a reference-format ``.pth`` / ``.pt`` onto the CPU with
+    ``torch.load(weights_only=True)``, ``REFERENCE_GLOBALS`` allowed: a
+    bare state_dict, a container of one, or timm's training checkpoint
+    (``epoch``, ``arch``, ``version``, ``metric``, ``args``,
+    ``state_dict``, ``state_dict_ema``). A file that pickles any other
+    global raises ``pickle.UnpicklingError``, which names it; the JAX
+    package, with ``weights_only=False``, would unpickle it."""
+    with torch.serialization.safe_globals(list(REFERENCE_GLOBALS)):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_pytorch_checkpoint(path: str, model: nn.Module,
                             strict: bool = False,
                             use_ema: bool = False) -> Dict[str, list]:
@@ -261,9 +331,10 @@ def load_pytorch_checkpoint(path: str, model: nn.Module,
     switch, factory.py:46-47). Returns the report of
     ``load_jax_variables``: 'loaded', 'missing', 'unexpected'. Without
     ``strict`` the model keeps the tensors the checkpoint lacks, as the
-    JAX package's loader does."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    state = extract_state_dict(state, use_ema=use_ema)
+    JAX package's loader does. The file is read by ``load_reference``;
+    the JAX function grafts onto a variables tree and returns it with the
+    report (``merge_into_variables``)."""
+    state = extract_state_dict(load_reference(path), use_ema=use_ema)
     converted = convert_state_dict(state)
     converted.pop("_unmatched")
     return load_jax_variables(model, converted, strict=strict)

@@ -16,8 +16,15 @@ inputs through both packages (the port on the CPU, its plain path).
   (skipped where the native data core does not load).
 - The names exported by ``ops`` and ``models`` cover the JAX package's
   (but ``pallas_batched_nms``: the kernels are reached as ``ops.cuda_*``).
+- Every top-level name of the JAX package resolves on the port's package
+  to the port's own object, every name of its ``utils`` (but
+  ``enable_xla_dump``) exists in the port's, and ``create_model`` /
+  ``create_model_from_config`` take its parameters in its order, then
+  ``device``.
 """
 import dataclasses
+import importlib
+import inspect
 import os
 
 import jax.numpy as jnp
@@ -25,10 +32,16 @@ import numpy as np
 import pytest
 import torch
 
+import ood_object_detection_tpu as jax_package
+import ood_object_detection_tpu.factory as jax_factory
 import ood_object_detection_tpu.models as jax_models
 import ood_object_detection_tpu.ops as jax_ops
+import ood_object_detection_tpu.utils as jax_utils
+import ood_object_detection_tpu_torch as package
+import ood_object_detection_tpu_torch.factory as factory
 import ood_object_detection_tpu_torch.models as models
 import ood_object_detection_tpu_torch.ops as ops
+import ood_object_detection_tpu_torch.utils as utils
 from ood_object_detection_tpu.config import get_efficientdet_config
 from ood_object_detection_tpu.config.train_config import \
     TrainConfig as JaxTrainConfig
@@ -315,3 +328,47 @@ def test_exports_cover_the_jax_package():
     from ood_object_detection_tpu_torch.ops import cuda_nms, nms
     assert ops.batched_nms is nms.batched_nms
     assert cuda_nms.batched_nms is not ops.batched_nms
+
+
+def _port_module(jax_module):
+    return jax_module.replace("ood_object_detection_tpu",
+                              "ood_object_detection_tpu_torch", 1)
+
+
+@pytest.mark.parametrize("name", sorted(jax_package._LAZY) + ["ops"])
+def test_top_level_names_match_the_jax_package(name):
+    """``odt.<name>`` is the port's counterpart of the JAX package's
+    top-level name: the same attribute of the same-named module."""
+    if name == "ops":
+        assert package.ops is ops
+        return
+    jax_module, attr = jax_package._LAZY[name]
+    want = getattr(importlib.import_module(_port_module(jax_module)), attr)
+    assert getattr(package, name) is want
+    assert name in package.__all__ and name in dir(package)
+
+
+def test_utils_exports_cover_the_jax_package():
+    jax_names = {n for n in dir(jax_utils) if not n.startswith("_")}
+    assert jax_names - {"enable_xla_dump"} <= set(dir(utils))
+    assert not hasattr(utils, "enable_xla_dump")
+    from ood_object_detection_tpu_torch.utils import (benchmark,
+                                                      checkpoint_convert,
+                                                      pretrained)
+    assert utils.device_time is benchmark.device_time
+    assert utils.merge_into_variables is checkpoint_convert.merge_into_variables
+    assert utils.load_pretrained is pretrained.load_pretrained
+
+
+@pytest.mark.parametrize("name", ["create_model", "create_model_from_config"])
+def test_factory_signatures_match_jax(name):
+    """JAX's parameters in JAX's order, then ``device``; so a positional
+    call written against the JAX package means the same here."""
+    want = inspect.signature(getattr(jax_factory, name)).parameters
+    got = inspect.signature(getattr(factory, name)).parameters
+    positional = [n for n, p in want.items() if p.kind is not p.VAR_KEYWORD]
+    assert list(got)[:len(positional)] == positional
+    assert list(got)[len(positional)] == "device"
+    assert list(got)[len(positional) + 1:] == list(want)[len(positional):]
+    for n in positional:
+        assert got[n].default == want[n].default, n

@@ -3,7 +3,13 @@ converter: the copied name rules and ``extract_state_dict`` give equal
 results, and a synthesized reference-named state_dict of a full-width D0,
 saved as a ``.pth`` and loaded by the port, gives the port model the same
 tensors, bit for bit, as JAX ``convert_state_dict`` followed by
-``utils.from_jax.load_jax_variables``."""
+``utils.from_jax.load_jax_variables``; a timm training checkpoint (an
+``argparse.Namespace`` beside the weights and their EMA copy) loads as the
+JAX package loads it, and a file that pickles any other class is
+refused."""
+import argparse
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +17,7 @@ import pytest
 import torch
 
 from ood_object_detection_tpu.config import get_efficientdet_config
+from ood_object_detection_tpu_torch.examples import deploy_infer
 from ood_object_detection_tpu.models import EfficientDet as JaxEfficientDet
 from ood_object_detection_tpu.utils import checkpoint_convert as jconvert
 from ood_object_detection_tpu_torch.factory import create_model
@@ -141,3 +148,78 @@ def test_create_model_reads_pth_and_refuses_orbax(reference_state_dict,
     with pytest.raises(NotImplementedError, match="reads no orbax directory"):
         create_model("efficientdet_d0", device="cpu",
                      checkpoint_path=str(orbax))
+
+
+class _Pickled:
+    """A class of this module: no checkpoint may unpickle it."""
+
+
+def _timm_container(state, ema, **extra):
+    """What timm's CheckpointSaver writes (its ``metric`` a Python
+    float)."""
+    return {"epoch": 12, "arch": "efficientdet_d0", "version": 2,
+            "metric": 0.3125,
+            "args": argparse.Namespace(model="efficientdet_d0", lr=0.09,
+                                       model_ema=True),
+            "state_dict": state, "state_dict_ema": ema, **extra}
+
+
+def test_timm_checkpoint_loads_like_the_jax_package(reference_state_dict,
+                                                    tmp_path):
+    """A timm training checkpoint loads in the port to the JAX package's
+    tensors, bit for bit, with and without ``use_ema``; through
+    ``create_model(checkpoint_path=..., checkpoint_ema=True)`` and the
+    deploy CLI's ``load_checkpoint`` too."""
+    ema = {k: v + 0.5 if v.is_floating_point() else v
+           for k, v in reference_state_dict.items()}
+    path = str(tmp_path / "model_best.pth")
+    torch.save(_timm_container(reference_state_dict, ema), path)
+    cfg = get_efficientdet_config("efficientdet_d0", num_classes=90).replace(
+        image_size=(IMG, IMG))
+    shapes = jax.eval_shape(
+        lambda k: JaxEfficientDet(cfg).init(
+            k, jnp.zeros((1, IMG, IMG, 3)), training=False),
+        jax.random.key(0))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                   {k: shapes[k] for k in ("params",
+                                                           "batch_stats")})
+    bias = "class_net.predict.conv_pw.bias"
+    for use_ema, want_state in ((False, reference_state_dict), (True, ema)):
+        variables, jreport = jconvert.load_pytorch_checkpoint(
+            path, zeros, use_ema=use_ema)
+        assert not jreport["missing"] and not jreport["unexpected"]
+        via_jax = _port_model()
+        load_jax_variables(via_jax, variables, strict=True)
+        ours = _port_model()
+        report = convert.load_pytorch_checkpoint(path, ours, strict=True,
+                                                 use_ema=use_ema)
+        assert len(report["loaded"]) == len(jreport["loaded"])
+        got, want = ours.state_dict(), via_jax.state_dict()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (use_ema, k)
+        assert torch.equal(ours.class_net.predict_bias(), want_state[bias])
+    bench = create_model("efficientdet_d0", bench_task="predict",
+                         num_classes=90, image_size=(IMG, IMG), device="cpu",
+                         checkpoint_path=path, checkpoint_ema=True)
+    assert torch.equal(bench.model.class_net.predict_bias(), ema[bias])
+    model = _port_model()
+    assert deploy_infer.load_checkpoint(model, path) == "reference"
+    assert torch.equal(model.class_net.predict_bias(),
+                       reference_state_dict[bias])
+
+
+def test_a_checkpoint_pickling_another_class_is_refused(tmp_path):
+    """Only ``argparse.Namespace`` is let in beside the tensors: a file
+    that pickles any other class raises and names it, through the
+    converter, ``create_model`` and the deploy CLI alike."""
+    state = {"class_net.predict.conv_pw.bias": torch.zeros(810)}
+    path = str(tmp_path / "other.pth")
+    torch.save(_timm_container(state, state, extra=_Pickled()), path)
+    for load in (lambda: convert.load_reference(path),
+                 lambda: convert.load_pytorch_checkpoint(path, _port_model()),
+                 lambda: create_model("efficientdet_d0", num_classes=90,
+                                      image_size=(IMG, IMG), device="cpu",
+                                      checkpoint_path=path),
+                 lambda: deploy_infer.load_checkpoint(_port_model(), path)):
+        with pytest.raises(pickle.UnpicklingError, match="_Pickled"):
+            load()

@@ -547,3 +547,23 @@ def test_bench_drive_runs_on_the_cpu(tmp_path, monkeypatch):
     assert out["cli"]["metric"].endswith("bs=1")
     assert out["roofline"]["task"] == "train"
     assert out["sweep"]["task"] == "predict" and out["sweep"]["batch"] == 1
+
+
+def test_pretrained_drive_runs_on_the_cpu(tmp_path):
+    """Phase 18's drive (pretrained_path) on the CPU at 128 px, batch 2:
+    ``odt.create_model(pretrained=True)`` over a filled cache with
+    ``urlretrieve`` raising, answering as ``checkpoint_path=`` on the same
+    file bit for bit and as the plain path; a timm training checkpoint's
+    EMA copy picked by ``checkpoint_ema=True`` and equal to a bare file of
+    it, and read by the deploy CLI as "reference"; the plain versions
+    launch nothing."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():                   # as the script runs
+        launches, compared, times = chip_smoke.pretrained_path(
+            str(tmp_path), gen, device="cpu", img=128, batch=2,
+            overrides={"max_detection_points": 3000})
+    assert set(launches.values()) == {0}
+    assert compared[2].ood_all.shape == (2, 3069)
+    assert times["seconds"] > 0 and times["request_ms"] > 0
+    assert sorted(p.name for p in (tmp_path / "cache").iterdir()) == [
+        "efficientdet_d0-f3276ba8.pth"]

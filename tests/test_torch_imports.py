@@ -56,6 +56,7 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.meta.train_driver",
     "ood_object_detection_tpu_torch.utils",
     "ood_object_detection_tpu_torch.utils.profiling",
+    "ood_object_detection_tpu_torch.utils.pretrained",
     "ood_object_detection_tpu_torch.export",
     "ood_object_detection_tpu_torch.data.native_decode",
     "ood_object_detection_tpu_torch.examples",
@@ -132,6 +133,25 @@ def test_public_api_exports_load_no_jax():
         "TrainConfig\n"
         "assert TrainConfig().eval_metric == 'map'\n"
         "assert callable(post_process) and callable(batched_nms)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'ood_object_detection_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_top_level_names_load_no_jax():
+    """Every top-level name (the JAX package's, and ``ops``) resolved in a
+    fresh process, and ``utils``' exports imported: no jax."""
+    code = (
+        "import sys\n"
+        "import ood_object_detection_tpu_torch as odt\n"
+        "values = [getattr(odt, n) for n in odt.__all__]\n"
+        "assert odt.ops.__name__ == 'ood_object_detection_tpu_torch.ops'\n"
+        "assert callable(odt.create_model) and len(values) == 24\n"
+        "from ood_object_detection_tpu_torch.utils import (device_time, "
+        "load_pretrained, merge_into_variables, PRETRAINED_URLS)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'ood_object_detection_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
