@@ -208,7 +208,7 @@ Phases, each synchronised so that a fault shows where it happened:
      bars (hold_step1); then SPATIAL_STEPS steps timed with K3 / K4 once
      a step on each rank, the spatial group's exchanges (halos, gathers,
      squeeze-excite sums) a step, a profiler window of one step's
-     collectives and exchanges with their host ms (the ``spatial_*``
+     collectives and exchanges with their host ms (the ``odt.spatial.*``
      spans), and each rank's step peak memory, which must
      be below one process's on the 8 images. With four cards
      (``--cards``, spatial_cards): the same at (2, 2) over NCCL, one rank
@@ -1881,7 +1881,7 @@ def pretrain_measures(logs, timer, trace):
         f"log step {rates}; median train step {median:.3f} ms (CUDA "
         f"events, {TRAIN_BATCH * 1e3 / median:.2f} images/s), min "
         f"{min(timer.times) * 1e3:.3f}, max {max(timer.times) * 1e3:.3f}")
-    wall, busy, idle, in_steps = trace_idle(trace)
+    wall, busy, idle, in_steps = trace_idle(trace, span="odt.step")
     log(f"[10] [{CARD}] traced steps 10-15 (profiler on): wall {wall:.3f} "
         f"ms, {in_steps:.3f} ms of it inside the train steps, card busy "
         f"{busy:.3f} ms, idle {100 * idle:.1f} %")
@@ -3387,7 +3387,8 @@ def dp_train_setup(device, img, classes, overrides, batch,
 
 def collective_window(step, state, local, steps, on_card):
     """Time ``steps`` train steps, then profile as many: (ms a step, per
-    step: the ``all_reduce_sum`` collectives (the synced BatchNorm's,
+    step, from the window's spans: the ``all_reduce_sum`` collectives
+    (``odt.mesh.all_reduce``: the synced BatchNorm's,
     forward and backward, the positives', the losses' and the
     gradient's) and their host ms, the gradient all-reduce's share of it,
     the NCCL kernels' device ms, which include their wait for the slowest
@@ -3405,9 +3406,10 @@ def collective_window(step, state, local, steps, on_card):
         for _ in range(steps):
             state, _ = step(state, local)
         sync_if(on_card)
-    spans = {k: [0, 0.0] for k in ("all_reduce_sum", "grad_all_reduce",
-                                    "spatial_halo", "spatial_gather",
-                                    "spatial_se_sum")}
+    spans = {k: [0, 0.0] for k in ("odt.mesh.all_reduce",
+                                    "odt.mesh.grad_all_reduce",
+                                    "odt.spatial.halo", "odt.spatial.gather",
+                                    "odt.spatial.se_sum")}
     device = 0.0
     for e in prof.key_averages():
         if e.key in spans and e.device_type == DeviceType.CPU:
@@ -3416,13 +3418,15 @@ def collective_window(step, state, local, steps, on_card):
         elif "nccl" in e.key.lower() and e.device_type == DeviceType.CUDA:
             device += e.self_device_time_total / 1e3
     window = {
-        "allreduces": spans["all_reduce_sum"][0] / steps,
-        "allreduce_host_ms": round(spans["all_reduce_sum"][1] / steps, 3),
-        "of_it_gradient_ms": round(spans["grad_all_reduce"][1] / steps, 3),
+        "allreduces": spans["odt.mesh.all_reduce"][0] / steps,
+        "allreduce_host_ms": round(spans["odt.mesh.all_reduce"][1] / steps,
+                                   3),
+        "of_it_gradient_ms": round(
+            spans["odt.mesh.grad_all_reduce"][1] / steps, 3),
         "nccl_kernel_ms": round(device / steps, 3)}
     # the spatial group's exchanges (phase 16), where the step makes them
     for kind in ("halo", "gather", "se_sum"):
-        count, ms = spans[f"spatial_{kind}"]
+        count, ms = spans[f"odt.spatial.{kind}"]
         if count:
             window[f"{kind}s"] = count / steps
             window[f"{kind}_host_ms"] = round(ms / steps, 3)
@@ -4115,7 +4119,7 @@ def spatial_path(tmp, device="cuda:0", backend="gloo", mesh=(1, 2),
     ``batch``; step 1 held against one process on the same batch to phase
     14 (a)'s bars (``hold_step1``), K3 / K4 once a step on each rank, the
     exchanges of a step logged with their host ms (the profiled step's
-    ``spatial_*`` spans), and on the card each rank's step peak memory
+    ``odt.spatial.*`` spans), and on the card each rank's step peak memory
     below one process's on the global batch. Returns the ranks'
     results."""
     overrides = overrides or {}

@@ -25,6 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
+
 # ImageNet statistics (ood_object_detection_tpu/data/transforms.py:20-21)
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -53,10 +55,11 @@ def batched_letterbox_normalize(
         raise ValueError(f"canvases must be [B, H, W, 3] uint8, not "
                          f"{tuple(canvases.shape)} {canvases.dtype}")
     th, tw = target_hw
-    image, img_scale, img_size = _letterbox_op(
-        canvases, torch.as_tensor(true_hw), int(th), int(tw),
-        [float(v) for v in mean], [float(v) for v in std],
-        [float(v) for v in fill_color], out_dtype)
+    with span("odt.letterbox"):
+        image, img_scale, img_size = _letterbox_op(
+            canvases, torch.as_tensor(true_hw), int(th), int(tw),
+            [float(v) for v in mean], [float(v) for v in std],
+            [float(v) for v in fill_color], out_dtype)
     return {"image": image, "img_scale": img_scale, "img_size": img_size}
 
 

@@ -36,6 +36,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..config.model_config import ModelConfig
+from ..utils.profiling import span
 from .backbone import create_backbone
 from .bifpn import BiFpn
 from .heads import PRIOR_BIAS, HeadNet
@@ -148,5 +149,6 @@ class EfficientDet(nn.Module):
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Image [B, H, W, 3] -> (class [B, H, W, A*C], box [B, H, W, A*4])
         per level; ``generator`` draws the backbone's drop masks."""
-        return self._heads(self.fpn(self.backbone(self._image(x),
-                                                  generator)))
+        with span("odt.forward"):
+            return self._heads(self.fpn(self.backbone(self._image(x),
+                                                      generator)))

@@ -39,6 +39,7 @@ from .box_coder import decode_boxes
 from .boxes import clip_boxes_xyxy
 from .nms import batched_nms_plain
 from .ood import _SCORERS, ood_score
+from ..utils.profiling import span
 
 MIN_SCORE = 0.01   # reference score pre-filter, strict (scores > MIN_SCORE)
 # NMS coordinate guard: far above any image coordinate, far below f32 inf,
@@ -251,29 +252,30 @@ def select_candidates(cls_outputs: List[torch.Tensor],
     if topk_method not in TOPK_METHODS:
         raise ValueError(f"unknown topk_method {topk_method!r}; expected one "
                          f"of {TOPK_METHODS}")
-    key_all = None
-    if topk_method != "per_anchor":
-        select = (_exact_topk_pairs if topk_method == "exact"
-                  else _approx_topk_pairs)
-        logits, indices, classes, ood_all = select(
-            cls_outputs, num_classes, max_detection_points, ood_method,
-            kernels=kernels)
-    elif _packed(cls_outputs, num_classes):
-        key_all, ood_all = _packed_f32_key_reduce(
-            cls_outputs, num_classes, ood_method, kernels=kernels)
-        k = min(max_detection_points, key_all.shape[1])
-        vals, indices = _topk(key_all, k)
-        logits, classes = _unpack_f32_key(vals)
-    else:
-        max_all, arg_all, ood_all = _per_anchor_reduce(
-            cls_outputs, num_classes, ood_method)
-        k = min(max_detection_points, max_all.shape[1])
-        logits, indices = _topk(max_all, k)
-        classes = torch.gather(arg_all, 1, indices)
-    return Candidates(
-        logits[..., None], _gather_boxes(box_outputs, indices),
-        None if anchors is None else anchors.boxes_for_indices(indices),
-        classes, indices, key_all, ood_all)
+    with span("odt.select"):
+        key_all = None
+        if topk_method != "per_anchor":
+            select = (_exact_topk_pairs if topk_method == "exact"
+                      else _approx_topk_pairs)
+            logits, indices, classes, ood_all = select(
+                cls_outputs, num_classes, max_detection_points, ood_method,
+                kernels=kernels)
+        elif _packed(cls_outputs, num_classes):
+            key_all, ood_all = _packed_f32_key_reduce(
+                cls_outputs, num_classes, ood_method, kernels=kernels)
+            k = min(max_detection_points, key_all.shape[1])
+            vals, indices = _topk(key_all, k)
+            logits, classes = _unpack_f32_key(vals)
+        else:
+            max_all, arg_all, ood_all = _per_anchor_reduce(
+                cls_outputs, num_classes, ood_method)
+            k = min(max_detection_points, max_all.shape[1])
+            logits, indices = _topk(max_all, k)
+            classes = torch.gather(arg_all, 1, indices)
+        return Candidates(
+            logits[..., None], _gather_boxes(box_outputs, indices),
+            None if anchors is None else anchors.boxes_for_indices(indices),
+            classes, indices, key_all, ood_all)
 
 
 def post_process(cls_outputs: List[torch.Tensor],
@@ -336,29 +338,32 @@ def batch_detection(cls_logits: torch.Tensor, box_out: torch.Tensor,
     scaled back to it. NMS is K1 (gaussian soft-NMS with ``soft_nms``), or
     its plain version with ``kernels=False``.
     """
-    boxes, scores, offset_boxes = nms_inputs(
-        cls_logits, box_out, anchors_sel, classes, img_scale, img_size)
-    nms = cuda_nms.batched_nms if kernels else batched_nms_plain
-    keep_idx, keep_scores = nms(
-        offset_boxes, scores, max_out=max_det_per_image,
-        iou_threshold=iou_threshold, soft=soft_nms, sigma=0.5,
-        score_threshold=0.001)
+    with span("odt.nms"):
+        boxes, scores, offset_boxes = nms_inputs(
+            cls_logits, box_out, anchors_sel, classes, img_scale, img_size)
+        nms = cuda_nms.batched_nms if kernels else batched_nms_plain
+        keep_idx, keep_scores = nms(
+            offset_boxes, scores, max_out=max_det_per_image,
+            iou_threshold=iou_threshold, soft=soft_nms, sigma=0.5,
+            score_threshold=0.001)
 
-    valid = keep_idx >= 0
-    safe = keep_idx.clamp(min=0).long()
-    zeros = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
-    out_boxes = torch.where(
-        valid[..., None],
-        torch.gather(boxes, 1, safe[..., None].expand(-1, -1, 4)), zeros)
-    out_scores = torch.where(valid, keep_scores, zeros)
-    out_classes = torch.where(
-        valid, torch.gather(classes, 1, safe).to(torch.float32) + 1.0, zeros)
-    if img_scale is not None and img_size is not None:
-        out_boxes = out_boxes * img_scale.reshape(
-            img_scale.shape[0], -1)[:, :1, None]
-    detections = torch.cat(
-        [out_boxes, out_scores[..., None], out_classes[..., None]], dim=-1)
-    return detections, keep_idx
+        valid = keep_idx >= 0
+        safe = keep_idx.clamp(min=0).long()
+        zeros = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+        out_boxes = torch.where(
+            valid[..., None],
+            torch.gather(boxes, 1, safe[..., None].expand(-1, -1, 4)), zeros)
+        out_scores = torch.where(valid, keep_scores, zeros)
+        out_classes = torch.where(
+            valid, torch.gather(classes, 1, safe).to(torch.float32) + 1.0,
+            zeros)
+        if img_scale is not None and img_size is not None:
+            out_boxes = out_boxes * img_scale.reshape(
+                img_scale.shape[0], -1)[:, :1, None]
+        detections = torch.cat(
+            [out_boxes, out_scores[..., None], out_classes[..., None]],
+            dim=-1)
+        return detections, keep_idx
 
 
 def generate_detections(cls_outputs: List[torch.Tensor],

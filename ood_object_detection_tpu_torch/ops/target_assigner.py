@@ -24,6 +24,7 @@ import torch
 from . import cuda_labeler
 from .anchors import Anchors
 from .boxes import pairwise_iou_yxyx
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,22 +133,23 @@ def batch_label_anchors(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     the kernels against them). ``unmatched_threshold`` below
     ``match_threshold`` opens the ignore band (code and class target -2).
     """
-    if unmatched_threshold is None:
-        unmatched_threshold = match_threshold
-    gt_classes = gt_classes.to(torch.int32).contiguous()
-    gt_boxes = gt_boxes.to(torch.float32).contiguous()
-    anchor_boxes = anchor_boxes.to(device=gt_boxes.device,
-                                   dtype=torch.float32).contiguous()
-    valid = gt_classes > -1
-    match = cuda_labeler.batch_match if kernels else \
-        cuda_labeler.batch_match_plain
-    targets = cuda_labeler.batch_codes_targets if kernels else \
-        cuda_labeler.batch_codes_targets_plain
-    vals, rows, best = match(anchor_boxes, gt_boxes, valid)
-    matches, cls_targets, box_targets, num_positives = targets(
-        anchor_boxes, gt_boxes, gt_classes, valid, vals, rows, best,
-        match_threshold, unmatched_threshold)
-    return LabelResult(cls_targets, box_targets, matches, num_positives)
+    with span("odt.label"):
+        if unmatched_threshold is None:
+            unmatched_threshold = match_threshold
+        gt_classes = gt_classes.to(torch.int32).contiguous()
+        gt_boxes = gt_boxes.to(torch.float32).contiguous()
+        anchor_boxes = anchor_boxes.to(device=gt_boxes.device,
+                                       dtype=torch.float32).contiguous()
+        valid = gt_classes > -1
+        match = cuda_labeler.batch_match if kernels else \
+            cuda_labeler.batch_match_plain
+        targets = cuda_labeler.batch_codes_targets if kernels else \
+            cuda_labeler.batch_codes_targets_plain
+        vals, rows, best = match(anchor_boxes, gt_boxes, valid)
+        matches, cls_targets, box_targets, num_positives = targets(
+            anchor_boxes, gt_boxes, gt_classes, valid, vals, rows, best,
+            match_threshold, unmatched_threshold)
+        return LabelResult(cls_targets, box_targets, matches, num_positives)
 
 
 class AnchorLabeler:

@@ -44,6 +44,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 LAUNCH = ("python -m torch.distributed.run --nproc-per-node N "
           "-m <entry point> ...")
 # a collective that waits longer than this fails instead of hanging
@@ -250,7 +252,7 @@ class _AllReduceSum(torch.autograd.Function):
         ctx.group = group
         out = tensor.clone(memory_format=torch.contiguous_format)
         all_reduce_sum.calls += 1
-        with torch.profiler.record_function("all_reduce_sum"):
+        with span("odt.mesh.all_reduce"):
             dist.all_reduce(out, group=group)
         return out
 
@@ -262,8 +264,8 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
     """``tensor`` summed over the ranks of ``group`` (a new tensor),
     differentiable; ``all_reduce_sum.calls`` counts the collectives, the
-    backward's included, and each is an ``all_reduce_sum`` span of a
-    profiler trace."""
+    backward's included, and each is an ``odt.mesh.all_reduce`` span of a
+    profiler trace when spans are on."""
     return _AllReduceSum.apply(tensor, group)
 
 

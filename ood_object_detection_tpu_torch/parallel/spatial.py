@@ -58,7 +58,8 @@ its point-to-point calls, and ranks that share one card run ``gloo``;
 card and on the CPU, at the cost of moving ``S`` slots where two rows
 would do, which for halos of one or two rows is small.
 ``EXCHANGES`` counts the exchanges by kind, forward and backward; each
-is a ``spatial_<kind>`` span of a profiler trace, which gives their time.
+is an ``odt.spatial.<kind>`` span of a profiler trace when spans are on
+(``utils.profiling``), which gives their time.
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 from .mesh import Mesh
 
 # collectives of the spatial group by kind ('halo', 'gather' and
@@ -83,7 +85,7 @@ def reset_exchanges() -> None:
 
 def _all_reduce(t: torch.Tensor, group, kind: str) -> None:
     EXCHANGES[kind] += 1
-    with torch.profiler.record_function(f"spatial_{kind}"):
+    with span(f"odt.spatial.{kind}"):
         dist.all_reduce(t, group=group)
 
 

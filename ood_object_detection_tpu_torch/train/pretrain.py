@@ -259,8 +259,7 @@ def _run(args, mesh, init_variables):
     from ..ops.anchors import Anchors
     from ..ops.post_process import generate_detections
     from ..parallel import process_merge
-    from ..utils.profiling import (MetricLogger, annotate, start_trace,
-                                   stop_trace)
+    from ..utils.profiling import MetricLogger, span, start_trace, stop_trace
     from .checkpoint import CheckpointManager
     from .train_state import (create_train_state, detection_eval_step,
                               linear_schedule, make_grouped_optimizer,
@@ -430,7 +429,7 @@ def _run(args, mesh, init_variables):
                 stop_trace(prof, args.profile_dir)
                 prof = None
         batch = {k: batch[k] for k in ("image", "bbox", "cls")}
-        with annotate("train_step"):
+        with span("odt.step"):
             state, metrics = step_fn(state, batch)
         for k, v in metrics.items():
             metrics_acc[k] += float(v)

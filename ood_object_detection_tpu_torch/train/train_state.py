@@ -71,7 +71,7 @@ from ..ops.losses import detection_loss_nhwc
 from ..ops.target_assigner import LabelResult, batch_label_anchors
 from ..parallel.mesh import Mesh, all_reduce_sum, synced_batch_norms
 from ..parallel.spatial import spatially_sharded
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 
 LrSchedule = Union[float, Callable[[int], float]]
 PARAM_GROUPS = ("backbone", "fpn", "heads")
@@ -264,13 +264,15 @@ def detection_loss(cfg, cls_out, box_out, labels: LabelResult,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, class, box) loss of per-level head outputs against flat
     labels, with the model config's loss settings."""
-    return detection_loss_nhwc(
-        cls_out, box_out, labels.cls_targets, labels.box_targets,
-        labels.num_positives, num_classes=cfg.num_classes, alpha=cfg.alpha,
-        gamma=cfg.gamma, delta=cfg.delta,
-        box_loss_weight=cfg.box_loss_weight,
-        label_smoothing=cfg.label_smoothing, legacy_focal=cfg.legacy_focal,
-        focal_modulation=cfg.focal_modulation, remat_cls=remat_cls)
+    with span("odt.loss"):
+        return detection_loss_nhwc(
+            cls_out, box_out, labels.cls_targets, labels.box_targets,
+            labels.num_positives, num_classes=cfg.num_classes,
+            alpha=cfg.alpha, gamma=cfg.gamma, delta=cfg.delta,
+            box_loss_weight=cfg.box_loss_weight,
+            label_smoothing=cfg.label_smoothing,
+            legacy_focal=cfg.legacy_focal,
+            focal_modulation=cfg.focal_modulation, remat_cls=remat_cls)
 
 
 def apply_gradients(state: TrainState, tx: torch.optim.Optimizer,
@@ -279,21 +281,22 @@ def apply_gradients(state: TrainState, tx: torch.optim.Optimizer,
     the parameters' ``.grad``: global-norm clip, the learning rate of each
     param group's schedule at this step, the optimizer step, the EMA and
     the step count. Returns the unclipped gradients' global norm."""
-    params = list(state.model.parameters())
-    for p in params:
-        if p.grad is None:          # optax sees a zero gradient
-            p.grad = torch.zeros_like(p)
-    with torch.no_grad():
-        grad_norm = _clip_by_global_norm([p.grad for p in params],
-                                         train_config.clip_grad_norm)
-    for group in tx.param_groups:
-        if group.get("lr_schedule") is not None:
-            group["lr"] = float(group["lr_schedule"](state.step))
-    tx.step()
-    if state.ema_params is not None:
-        _update_ema(state, train_config.ema_decay)
-    state.step += 1
-    return grad_norm
+    with span("odt.update"):
+        params = list(state.model.parameters())
+        for p in params:
+            if p.grad is None:          # optax sees a zero gradient
+                p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            grad_norm = _clip_by_global_norm([p.grad for p in params],
+                                             train_config.clip_grad_norm)
+        for group in tx.param_groups:
+            if group.get("lr_schedule") is not None:
+                group["lr"] = float(group["lr_schedule"](state.step))
+        tx.step()
+        if state.ema_params is not None:
+            _update_ema(state, train_config.ema_decay)
+        state.step += 1
+        return grad_norm
 
 
 def detection_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
@@ -316,8 +319,9 @@ def detection_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
     total, cls_loss, box_loss = detection_loss(
         model.config, cls_out, box_out, labels,
         remat_cls=train_config.remat_cls_loss)
-    tx.zero_grad()
-    total.backward()
+    with span("odt.backward"):
+        tx.zero_grad()
+        total.backward()
     grad_norm = apply_gradients(state, tx, train_config)
     metrics = {
         "loss": total.detach(),
@@ -421,9 +425,10 @@ def mesh_train_step(model: EfficientDet, tx: torch.optim.Optimizer,
         total, cls_loss, box_loss = spatial_loss(
             model.config, cls_out, box_out, labels, anchors, index,
             remat_cls=train_config.remat_cls_loss)
-        tx.zero_grad()
-        total.backward()
-    with annotate("grad_all_reduce"):
+        with span("odt.backward"):
+            tx.zero_grad()
+            total.backward()
+    with span("odt.mesh.grad_all_reduce"):
         sum_gradients(list(model.parameters()), mesh)
     grad_norm = apply_gradients(state, tx, train_config)
     losses = all_reduce_sum(torch.stack([total, cls_loss, box_loss])

@@ -3,11 +3,22 @@
 
 ``trace`` captures a ``torch.profiler`` trace (CPU, and the card's kernels
 and copies where there is one) and writes it as a Chrome trace;
-``annotate`` labels a region inside it (``record_function``);
+``span`` labels a region inside it (``record_function``; ``annotate`` is
+its JAX-package name);
 ``StepTimer`` keeps per-step times, from CUDA events on the card and the
 host clock on the CPU; ``MetricLogger`` writes JSON lines, a copy of the
 JAX package's. The JAX package's ``enable_xla_dump`` has no counterpart:
 PyTorch eager compiles nothing through XLA.
+
+The program's spans (``odt.<layer>``: ``odt.letterbox``, ``odt.forward``,
+``odt.select``, ``odt.nms``, ``odt.label``, ``odt.loss``, ``odt.backward``,
+``odt.update``, ``odt.step``, ``odt.mesh.*``, ``odt.spatial.*``) are on
+exactly while a profiler records, whoever started it (``start_trace`` /
+``trace``, or a caller's own ``torch.profiler.profile``): each is then a
+``record_function`` range in the profiler's own trace, on the clock of the
+card's kernels and copies and linked to their launches by correlation ids.
+With no profiler recording, the default, ``span`` returns one shared no-op
+context manager: a global read, no dispatcher call.
 """
 from __future__ import annotations
 
@@ -19,6 +30,19 @@ import time
 from typing import Dict, Iterator, List, Optional, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A labelled region of the trace (``record_function(name)``) while a
+    profiler records; the shared no-op context manager otherwise."""
+    return (torch.profiler.record_function(name)
+            if _autograd_profiler._is_profiler_enabled else _OFF)
+
+
+annotate = span            # the JAX package's name for it
 
 
 def start_trace() -> torch.profiler.profile:
@@ -53,11 +77,6 @@ def trace(log_dir: str = "torch_trace") -> Iterator[torch.profiler.profile]:
         yield prof
     finally:
         stop_trace(prof, log_dir)
-
-
-def annotate(name: str):
-    """A labelled region inside a trace."""
-    return torch.profiler.record_function(name)
 
 
 class StepTimer:

@@ -405,7 +405,7 @@ def test_spatial_drive_runs_on_the_cpu(tmp_path):
     as a (1, 2) mesh, with every check of the phase that does not need
     the card: step 1 of the spatial step against one process on the same
     4 images (phase 14 (a)'s bars), a further timed step with finite
-    metrics, the exchanges counted, and the profiled step's ``spatial_*``
+    metrics, the exchanges counted, and the profiled step's ``odt.spatial.*``
     spans seeing every one of them."""
     with torch.enable_grad():
         ranks = chip_smoke.spatial_path(
