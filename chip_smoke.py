@@ -335,7 +335,8 @@ from ood_object_detection_tpu_torch.meta import train_driver
 from ood_object_detection_tpu_torch.meta.inner_loop import (class_head,
                                                             inner_adapt)
 from ood_object_detection_tpu_torch.ops import (cuda_build, cuda_labeler,
-                                                cuda_nms, cuda_reduce)
+                                                cuda_nms, cuda_reduce,
+                                                cuda_update)
 from ood_object_detection_tpu_torch.ops.anchors import Anchors
 from ood_object_detection_tpu_torch.ops.boxes import pairwise_iou_yxyx
 from ood_object_detection_tpu_torch.ops.losses import detection_loss_nhwc
@@ -844,6 +845,55 @@ def label_kernel_times(anchor_boxes, boxes, cls, tag="[7]"):
     return {"K3": k3, "K4": k4}
 
 
+def update_kernel_times(model, ema, tag="[7]"):
+    """The update's multi-tensor kernels at the model's parameters: each
+    held against its plain version (the clip given the kernel's norm, bit
+    for bit; the norm within 1e-6 relative), then timed (CUDA events over
+    50 calls) beside its bytes bound and the plain loops, with the 50 MB
+    L2 warm (back to back) and cold (a 128 MB memset before each call,
+    whose own time is taken off). A limit of -1 keeps the clip engaged on
+    every call (it flips the signs), so each call does the most work."""
+    params = [p.detach() for p in model.parameters()]
+    grads = [torch.empty_like(p).normal_() for p in params]
+    n = sum(p.numel() for p in params)
+    norm = float(cuda_update.global_norm_plain(grads))
+    got, want = ([g.clone() for g in grads] for _ in range(2))
+    k_norm = cuda_update.global_norm_clip_(got, 0.5 * norm)
+    cuda_update.clip_scale_plain_(want, k_norm, 0.5 * norm)
+    d = np.float32(0.9998)
+    e_got, e_want = ([ema[k].clone() for k, _ in model.named_parameters()]
+                     for _ in range(2))
+    cuda_update.ema_update_(e_got, params, d)
+    cuda_update.ema_update_plain_(e_want, params, d)
+    sync()
+    check(abs(float(k_norm) - norm) <= 1e-6 * norm
+          and all(map(torch.equal, got, want))
+          and all(map(torch.equal, e_got, e_want)),
+          "the update kernels differ from their plain versions")
+    flush = torch.empty((32 * 2 ** 20,), device="cuda")
+    flush_ms = cuda_ms(flush.zero_, 50)
+    cases = {
+        "norm": (lambda: cuda_update.global_norm_clip_(got, 0.0),
+                 lambda: cuda_update.global_norm_clip_plain_(want, 0.0), 4),
+        "clip": (lambda: cuda_update.global_norm_clip_(got, -1.0),
+                 lambda: cuda_update.global_norm_clip_plain_(want, -1.0),
+                 12),
+        "EMA": (lambda: cuda_update.ema_update_(e_got, params, d),
+                lambda: cuda_update.ema_update_plain_(e_want, params, d),
+                12)}
+    for name, (kernel, plain, bytes_per_value) in cases.items():
+        t = dict(ms=cuda_ms(kernel, 50),
+                 cold_ms=cuda_ms(lambda: (flush.zero_(), kernel()), 50)
+                 - flush_ms,
+                 plain_ms=cuda_ms(plain, 5),
+                 bound_ms=bytes_per_value * n / HBM_BYTES_PER_S * 1e3)
+        log(f"{tag} update {name}, {len(params)} tensors, {n} values: "
+            f"{t['ms']:.4f} ms L2-warm, {t['cold_ms']:.4f} ms cold, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms (bytes, "
+            f"{bytes_per_value} a value), {100 * t['bound_ms'] / t['cold_ms']:.1f}"
+            " % of it reached cold")
+
+
 def train_batch(batch, gen):
     """Normal images [B, 512, 512, 3] f32 and their padded ground truth."""
     boxes, cls = ground_truth(batch, gen)
@@ -883,6 +933,12 @@ def train_path(gen):
     check(launches["K3"] == launches["K4"] == len(batches),
           f"K3 and K4 must launch once a step: {launches} for "
           f"{len(batches)} steps")
+    update = {fn.__name__: fn.launches for fn in (
+        cuda_update.global_norm_clip_, cuda_update.ema_update_)}
+    log(f"[6] update kernels: {update}")
+    check(list(update.values()) == [len(batches)] * 2,
+          f"the clip and the EMA kernels must run once a step: {update} "
+          f"for {len(batches)} steps")
     for i, m in enumerate(metrics):
         values = {k: float(v) for k, v in m.items()}
         log(f"[6] step {i + 1}: {values}")
@@ -2849,6 +2905,7 @@ def main(argv=()):
             t_label = label_kernel_times(anchor_boxes, *label_inputs[batch])
             if batch == TRAIN_BATCH:
                 t.update(t_label)
+        update_kernel_times(train[0].model, train[1].ema_params)
         for batch in (TRAIN_BATCH, 128):
             busy["train"] = train_throughput(*train[:5], batch,
                                              gen)["busy_ms"] / 1e3
@@ -3109,7 +3166,8 @@ def kernel_cases(gen, tag="[3]"):
 def reset_launches():
     """Every kernel's launch count to 0 (before a path is driven)."""
     for fn in (cuda_nms.batched_nms, cuda_reduce.key_energy_reduce,
-               cuda_labeler.batch_match, cuda_labeler.batch_codes_targets):
+               cuda_labeler.batch_match, cuda_labeler.batch_codes_targets,
+               cuda_update.global_norm_clip_, cuda_update.ema_update_):
         fn.launches = 0
 
 
@@ -3211,7 +3269,10 @@ def profile_window(fn, reps=PROFILE_REPS):
             fn()
         sync()
     events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the profiler mirrors each of the program's spans (``odt.*``) onto the
+    # card's timeline as a user annotation, which is no device work
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
     check(len(device) > 0, "the profiler recorded no device activity")
     issued = collections.Counter(
         e.name for e in events

@@ -30,12 +30,14 @@ BASE_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # no FMA contraction where a kernel must round like its plain version:
-# the IoU of nms.cu and label_match.cu, the box encode of label_targets.cu
+# the IoU of nms.cu and label_match.cu, the box encode of label_targets.cu,
+# the clip and the EMA of multi_tensor.cu
 SOURCES: Dict[str, Tuple[str, ...]] = {
     "nms.cu": ("-fmad=false",),
     "key_reduce.cu": (),
     "label_match.cu": ("-fmad=false",),
     "label_targets.cu": ("-fmad=false",),
+    "multi_tensor.cu": ("-fmad=false",),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

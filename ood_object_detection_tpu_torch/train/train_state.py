@@ -67,6 +67,7 @@ from ..bench import unwrap_bench
 from ..config.train_config import TrainConfig
 from ..models.efficientdet import EfficientDet
 from ..ops.anchors import Anchors
+from ..ops.cuda_update import ema_update_, global_norm_clip_
 from ..ops.losses import detection_loss_nhwc
 from ..ops.target_assigner import LabelResult, batch_label_anchors
 from ..parallel.mesh import Mesh, all_reduce_sum, synced_batch_norms
@@ -236,27 +237,25 @@ def create_train_state(model: nn.Module, train_config: TrainConfig,
 
 def _clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place on ``grads``; returns the
-    global norm of the unclipped gradients (a device scalar, no sync)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    if max_norm:
-        keep = norm < max_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * max_norm))
-    return norm
+    global norm of the unclipped gradients (a device scalar, no sync).
+    On the card, the multi-tensor kernels of ``ops.cuda_update``."""
+    return global_norm_clip_(grads, max_norm)
 
 
 @torch.no_grad()
 def _update_ema(state: TrainState, decay: float) -> None:
     """``e = e * d + p * (1 - d)`` with the warm-up-corrected decay
     ``d = min(decay, (1 + n) / (10 + n))``, n the step count after this
-    step, computed in f32 as the JAX step does."""
+    step, computed in f32 as the JAX step does. On the card, the
+    multi-tensor kernel of ``ops.cuda_update``."""
     step_f = np.float32(state.step) + np.float32(1.0)
     d = min(np.float32(decay), (np.float32(1.0) + step_f)
             / (np.float32(10.0) + step_f))
-    one_minus = np.float32(1.0) - d
+    ema, params = [], []
     for name, p in state.model.named_parameters():
-        e = state.ema_params[name]
-        e.copy_(e * float(d) + p * float(one_minus))
+        ema.append(state.ema_params[name])
+        params.append(p)
+    ema_update_(ema, params, d)
 
 
 def detection_loss(cfg, cls_out, box_out, labels: LabelResult,

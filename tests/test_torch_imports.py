@@ -20,6 +20,7 @@ PUBLIC_MODULES = (
     "ood_object_detection_tpu_torch.ops.cuda_nms",
     "ood_object_detection_tpu_torch.ops.cuda_reduce",
     "ood_object_detection_tpu_torch.ops.cuda_labeler",
+    "ood_object_detection_tpu_torch.ops.cuda_update",
     "ood_object_detection_tpu_torch.ops.target_assigner",
     "ood_object_detection_tpu_torch.ops.losses",
     "ood_object_detection_tpu_torch.config.train_config",
